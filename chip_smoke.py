@@ -5,27 +5,39 @@
 
 Phases (any failure raises and the exit code is nonzero):
 1. the card: nvidia-smi name and power limit, torch's CUDA, nvcc;
-2. build the CUDA kernel csrc/dia_spmv.cu from the checkout (nvcc, sm_90a);
-3. the kernel against its plain PyTorch version on the card at b = 1..4
-   with odd, negative and out-of-range offsets, and at the flagship
-   shape (b = 3, offsets 0, +-1, +-128, +-8192, n = 532,480): rtol 1e-5,
-   atol 1e-5 * max|y| (f32 FMA contraction and summation order), with
-   both times from CUDA events (median of 20);
-4. the main path: the flagship model of bench.py (128 x 64 x 64 cells,
-   EOS wge with air, f32 Jacobian, f32 BiCGStab with block-Jacobi) built
-   with Simulation(..., device="cuda") and driven through make_step_fn
-   with the timestepper's retry ladder (dt from 1e5 s, x0.2 on failure)
-   until 2 steps are accepted, at most 12 tries; the kernel's launch
-   count over this phase must equal the Krylov matvec count and be > 0
-   (no matvec took the plain version);
-5. the kernel against the plain version on the flagship's first
-   Jacobian, at the tolerance of phase 3;
+2. build the CUDA kernels csrc/dia_spmv.cu and csrc/stream_scale.cu from
+   the checkout (one nvcc each, started together, sm_90a);
+3. each kernel against its plain PyTorch version on the card:
+   - dia_spmv_f32 at b = 1..4 with odd, negative and out-of-range
+     offsets, and at the flagship shape (b = 3, offsets 0, +-1, +-128,
+     +-8192, n = 532,480): rtol 1e-5, atol 1e-5 * max|y| (f32 FMA
+     contraction and summation order);
+   - dia_spmv_f64 at the same shapes: rtol 1e-12, atol 1e-12 * max|y|
+     (f64 FMA contraction);
+   - stream_scale on an [8, 8Mi] f32 array against x * 0.999999: equal
+     to within 1 ulp (one f32 multiply each; bitwise equal expected);
+   with times as medians of chained launches (CUDA events);
+4. the main path: the port's bench (waiwera_tpu_torch/bench.py) in this
+   process at its default sizes with every section (flagship 128 x 64
+   x 64 settled step, stage breakdown, SpMV roofline with the stream
+   kernel's bandwidth, reduced-box step, f64/f64 dtype table, ELL, MINC,
+   CPU reference, preconditioner sweep), with every kernel count set to
+   0 just before and read just after. Checks: the flagship settle
+   accepted >= 2 steps, kernel launches = Krylov matvecs > 0 on the
+   bjacobi sections (no matvec took the plain version), finite y;
+   0 < spmv_roofline_fraction <= 1.05; measured bandwidth below
+   1.05 x 3.35 TB/s; the MINC step ran the hybrid operator with
+   launches > 0; every kernel was launched;
+5. dia_spmv (f32 and f64) against the plain version on the flagship's
+   first Jacobian, at the tolerances of phase 3, timed beside
+   torch.sparse.mm on the same matrix as a CUDA CSR tensor;
 6. the same three small-box steps on the card and on the CPU (plain
    SpMV), which must agree as the CPU port agrees with the JAX package
    (rtol 2e-5, atol 2e-5).
 
-Prints, before the last line, one JSON line {"kernels": [...]} and the
-card's nvidia-smi name and power limit; the last line is
+Prints each bench section's wall time on its own line, then the bench's
+full JSON record, one JSON line {"kernels": [...]} and the card's
+nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {...}}. Exits nonzero without a CUDA device.
 """
 
@@ -34,7 +46,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -44,75 +55,24 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-RTOL = 1e-5
+from waiwera_tpu_torch.bench import (  # noqa: E402
+    build_sim,
+    flagship_config,
+    flagship_spacing,
+    make_step,
+)
+
+__all__ = ["build_sim", "flagship_config", "flagship_spacing", "make_step",
+           "run_steps"]
+
+RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FLAGSHIP = (128, 64, 64)
 FLAGSHIP_OFFSETS = (-8192, -128, -1, 0, 1, 128, 8192)
 FLAGSHIP_ROWS = 128 * 64 * 64 + 128 * 64  # interior + top ghost cells
-
-
-def flagship_config(nx: int, ny: int, nz: int) -> dict:
-    """The flagship model of bench.py build_sim (copied, not imported;
-    the parity tests build it on a small box from here)."""
-    n = nx * ny * nz
-    top0 = n - nx * ny  # first cell of the top layer
-    return {
-        "eos": {"name": "wge"},
-        "initial": {"primary": [5.0e6, 220.0, 1.0e5], "region": 1},
-        "rock": {
-            "types": [
-                {
-                    "name": "res",
-                    "permeability": [5e-14, 5e-14, 2e-14],
-                    "porosity": 0.1,
-                }
-            ]
-        },
-        "boundaries": [
-            {
-                "primary": [1.0e5, 20.0, 1.0e3],
-                "region": 1,
-                "faces": {
-                    "cells": list(range(top0, n)),
-                    "normal": [0.0, 0.0, 1.0],
-                },
-            }
-        ],
-        "source": [
-            {
-                "cell": top0 + nx * (ny // 2) + nx // 2,
-                "deliverability": {"productivity": 1e-12,
-                                   "pressure": 5.0e5},
-                "direction": "production",
-            },
-            {"cell": nx * (ny // 2) + nx // 4, "rate": 20.0,
-             "enthalpy": 500.0e3},
-        ],
-        "time": {"step": {"size": 1.0e5}},
-    }
-
-
-def flagship_spacing(nx: int, ny: int, nz: int):
-    """Cell widths (dx, dy, dz) and origin of the flagship box."""
-    return ([50.0] * nx, [50.0] * ny, [20.0] * nz), [0.0, 0.0, -20.0 * nz]
-
-
-def build_sim(nx: int, ny: int, nz: int, device: str):
-    from waiwera_tpu_torch.mesh.rect import rectangular_mesh
-    from waiwera_tpu_torch.sim.simulation import Simulation
-
-    widths, origin = flagship_spacing(nx, ny, nz)
-    mesh = rectangular_mesh(*widths, origin=origin)
-    return Simulation(flagship_config(nx, ny, nz), mesh=mesh, device=device)
-
-
-def make_step(sim):
-    from waiwera_tpu_torch.solver.newton import NewtonParams
-
-    return sim.make_step_fn(
-        NewtonParams(max_iterations=8, min_iterations=1,
-                     linear_dtype="float32", jacobian_dtype="float32"),
-        "beuler",
-    )
+# published H100 SXM rates at 700 W (NVIDIA data sheet): device memory,
+# f32 outside the tensor cores, f64 outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def run_steps(sim, step, dts=None, accept=2, max_tries=12, log=None):
@@ -155,48 +115,135 @@ def run_steps(sim, step, dts=None, accept=2, max_tries=12, log=None):
     return tries
 
 
-def _time_ms(fn, reps=20):
-    """Median of `reps` single-call times from CUDA events, in ms."""
-    fn()
+def _chain_ms(fn, k=20, reps=5):
+    """Median over `reps` of the CUDA-event time of k chained calls,
+    divided by k, in ms (one warm-up chain first)."""
+    for _ in range(k):
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(k):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / k)
     return statistics.median(times)
 
 
-def compare_kernel(m, x, label, log):
-    """Kernel vs plain version on the card: (max_abs_err, ms, plain_ms)."""
+def _bound_ms(nbytes, flops, dtype):
+    """Least time of the card for the work: the larger of bytes over the
+    memory rate and operations over the type's rate, and which binds."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def spmv_work(m):
+    """(bytes, flops) of one band SpMV: each band value, x and y once."""
+    D, bb, n = len(m.offsets), m.block_size ** 2, m.num_rows
+    size = m.bands.element_size()
+    return (D * bb * n + 2 * n * m.block_size) * size, 2 * D * bb * n
+
+
+def to_csr(m):
+    """The band matrix m as a CUDA CSR tensor [n*b, n*b] (the library
+    yardstick; the port never calls it)."""
+    b, n = m.block_size, m.num_rows
+    dev = m.bands.device
+    i = torch.arange(n, device=dev)
+    rows, cols, vals = [], [], []
+    for k, d in enumerate(m.offsets):
+        j = i + d
+        ok = (j >= 0) & (j < n)
+        for r in range(b):
+            for c in range(b):
+                rows.append(i[ok] * b + r)
+                cols.append(j[ok] * b + c)
+                vals.append(m.bands[k, r * b + c, :n][ok])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (n * b, n * b),
+    ).coalesce()
+    return coo.to_sparse_csr()
+
+
+def compare_spmv(m, x, label, log, library=False):
+    """Kernel vs plain version on the card: dict of max_abs_err, ms,
+    plain_ms, library_ms (torch.sparse.mm on the CSR form, or None),
+    bound_ms and bound_by."""
     from waiwera_tpu_torch.ops import dia
 
+    rtol = RTOL[m.bands.dtype]
     y = dia.dia_matvec(m, x)
     torch.cuda.synchronize()
     y_ref = dia.dia_matvec_reference(m, x)
     err = float((y - y_ref).abs().max())
     scale = float(y_ref.abs().max())
-    torch.testing.assert_close(y, y_ref, rtol=RTOL, atol=RTOL * scale)
-    ms = _time_ms(lambda: dia.dia_matvec(m, x))
-    plain_ms = _time_ms(lambda: dia.dia_matvec_reference(m, x))
-    log(f"spmv {label}: b {m.block_size} offsets {m.offsets} n {m.num_rows} "
-        f"max_abs_err {err:.3e} (max|y| {scale:.3e}) kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=rtol * scale)
+    ms = _chain_ms(lambda: dia.dia_matvec(m, x))
+    plain_ms = _chain_ms(lambda: dia.dia_matvec_reference(m, x), k=5)
+    lib_ms = None
+    if library:
+        csr = to_csr(m)
+        xv = x.reshape(-1, 1)
+        y_lib = torch.sparse.mm(csr, xv).reshape(x.shape)
+        torch.testing.assert_close(y_lib, y_ref, rtol=rtol, atol=rtol * scale)
+        lib_ms = _chain_ms(lambda: torch.sparse.mm(csr, xv))
+        del csr
+    nbytes, flops = spmv_work(m)
+    bound, bound_by = _bound_ms(nbytes, flops, m.bands.dtype)
+    log(f"spmv {label}: {m.bands.dtype} b {m.block_size} offsets "
+        f"{m.offsets} n {m.num_rows} max_abs_err {err:.3e} (max|y| "
+        f"{scale:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+        f"{lib_ms} ms bound {bound:.4f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+            "bytes": nbytes}
 
 
-def random_matrix(rng, b, n, offsets, device):
+def compare_stream(log):
+    """stream_scale vs x * 0.999999 on the card ([8, 8Mi] f32)."""
+    from waiwera_tpu_torch.ops import stream
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((stream.N_SUB, stream.N_LANE), generator=gen,
+                   device="cuda") + 0.5
+    out = torch.empty_like(x)
+    stream.stream_scale(x, out)
+    torch.cuda.synchronize()
+    ref = x * stream.SCALE
+    bitwise = bool(torch.equal(out, ref))
+    ulp = float(((out.view(torch.int32) - ref.view(torch.int32)).abs()
+                 .max()))
+    err = float((out - ref).abs().max())
+    if ulp > 1:
+        raise RuntimeError(f"stream_scale differs by {ulp} ulp")
+    y = torch.empty_like(x)
+    ms = _chain_ms(lambda: stream.stream_scale(x, out))
+    plain_ms = _chain_ms(lambda: x * stream.SCALE)
+    lib_ms = _chain_ms(lambda: torch.mul(x, stream.SCALE, out=y))
+    nbytes = 2 * x.numel() * 4
+    bound, bound_by = _bound_ms(nbytes, x.numel(), torch.float32)
+    log(f"stream_scale [8, 8Mi] f32: bitwise equal {bitwise}, max ulp "
+        f"{ulp:.0f}, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s) "
+        f"plain {plain_ms:.4f} ms torch.mul(out=) {lib_ms:.4f} ms bound "
+        f"{bound:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+            "bytes": nbytes, "bitwise_equal": bitwise}
+
+
+def random_matrix(rng, b, n, offsets, device, dtype=torch.float32):
     from waiwera_tpu_torch.ops import dia
 
-    bands = torch.as_tensor(
-        rng.standard_normal((len(offsets), b * b, n)).astype(np.float32),
-        device=device,
-    )
-    x = torch.as_tensor(rng.standard_normal((n, b)).astype(np.float32),
+    bands = torch.as_tensor(rng.standard_normal((len(offsets), b * b, n)),
+                            dtype=dtype, device=device)
+    x = torch.as_tensor(rng.standard_normal((n, b)), dtype=dtype,
                         device=device)
     return dia.DIAMatrix(offsets=tuple(offsets), bands=bands, block_size=b,
                          num_rows=n), x
@@ -206,99 +253,117 @@ def log(msg):
     print(msg, flush=True)
 
 
+def check_bench(res, counts):
+    """The main path's checks on the bench record and kernel counts."""
+    op = res["operating_point"]
+    if op["settle_accepted"] < 2:
+        raise RuntimeError(f"flagship settle: {op['settle_accepted']} "
+                           "accepted")
+    if not op["y_finite"] or op["y_shape"] != [FLAGSHIP_ROWS, 3]:
+        raise RuntimeError(f"flagship solution: finite {op['y_finite']}, "
+                           f"shape {op['y_shape']}")
+    # bjacobi sections: every Krylov matvec launched the kernel
+    for key in ("operating_point", "reduced_operating_point",
+                "minc_operating_point"):
+        o = res[key]
+        if o["spmv_launches"] <= 0 or o["spmv_launches"] != o["krylov_matvecs"]:
+            raise RuntimeError(f"{key}: kernel launches {o['spmv_launches']} "
+                               f"!= Krylov matvecs {o['krylov_matvecs']}")
+    o = res["dtype_table"]["f64_operating_point"]
+    if o["spmv_launches"] <= 0 or o["spmv_launches"] != o["krylov_matvecs"]:
+        raise RuntimeError(f"f64 step: kernel launches {o['spmv_launches']}"
+                           f" != Krylov matvecs {o['krylov_matvecs']}")
+    if res["minc_spmv_path"] != "hybrid-dia":
+        raise RuntimeError(f"MINC step took {res['minc_spmv_path']}")
+    frac = res["spmv_roofline_fraction"]
+    if not 0.0 < frac <= 1.05:
+        raise RuntimeError(f"spmv_roofline_fraction {frac}")
+    if not 0.0 < res["measured_bandwidth_gb_s"] < 1.05 * 3350.0:
+        raise RuntimeError(f"measured bandwidth "
+                           f"{res['measured_bandwidth_gb_s']} GB/s")
+    for name, n in counts.items():
+        if n <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the "
+                               "main path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
-    from waiwera_tpu_torch.ops import cuda_build, dia
+    from waiwera_tpu_torch import bench
+    from waiwera_tpu_torch.ops import cuda_build, dia, stream
     from waiwera_tpu_torch.solver.system import MethodCoeffs
 
+    t_all = time.perf_counter()
     device = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. the card and the toolchain
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip()
-    nvcc = subprocess.run([cuda_build.nvcc(), "--version"], check=True,
-                          capture_output=True, text=True).stdout
+    smi = bench.card()
+    tools = bench.toolchain()
     log(f"card: {smi}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"nvcc: {nvcc.strip().splitlines()[-1]}")
+    log(f"toolchain: {json.dumps(tools)}")
 
-    # 2. build the kernel from the checkout
+    # 2. build the kernels from the checkout, in parallel
     t0 = time.perf_counter()
-    lib = cuda_build.build("dia_spmv")
-    log(f"built {os.path.relpath(lib, ROOT)} in "
+    libs = cuda_build.build_all(["dia_spmv", "stream_scale"],
+                                extra_flags=("-Xptxas=-v",))
+    log(f"built {[os.path.relpath(p, ROOT) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # 3. kernel vs plain on random bands
+    # 3. kernels vs plain on random inputs
     rng = np.random.default_rng(0)
     n_small = 100_003
-    for b in (1, 2, 3, 4):
-        offs = sorted({0, 1, -1, 3, -7, int(rng.integers(2, 500)),
-                       -int(rng.integers(2, 500)), n_small, -n_small - 5})
-        m, x = random_matrix(rng, b, n_small, offs, device)
-        compare_kernel(m, x, f"random b={b}", log)
-    m, x = random_matrix(rng, 3, FLAGSHIP_ROWS, FLAGSHIP_OFFSETS, device)
-    compare_kernel(m, x, "random flagship shape", log)
-    del m, x
+    for dtype in (torch.float32, torch.float64):
+        for b in (1, 2, 3, 4):
+            offs = sorted({0, 1, -1, 3, -7, int(rng.integers(2, 500)),
+                           -int(rng.integers(2, 500)), n_small,
+                           -n_small - 5})
+            m, x = random_matrix(rng, b, n_small, offs, device, dtype)
+            compare_spmv(m, x, f"random b={b}", log)
+        m, x = random_matrix(rng, 3, FLAGSHIP_ROWS, FLAGSHIP_OFFSETS, device,
+                             dtype)
+        compare_spmv(m, x, "random flagship shape", log)
+        del m, x
+    kstream = compare_stream(log)
 
-    # 4. the main path at flagship size
+    # 4. the main path: the port's bench, every section
+    for c in (dia.dia_spmv_launches, dia.dia_spmv_f64_launches,
+              stream.stream_scale_launches):
+        c.count = 0
     t0 = time.perf_counter()
+    # no device named: the entry point takes the CUDA device by default
+    b = bench.Bench(emit=lambda r: None, log=log)
+    res = b.run()
+    counts = {"dia_spmv": dia.dia_spmv_launches.count,
+              "dia_spmv_f64": dia.dia_spmv_f64_launches.count,
+              "stream_scale": stream.stream_scale_launches.count}
+    log(f"main path (bench) {time.perf_counter() - t0:.2f} s; launches "
+        f"{counts}")
+    for name, s in res["section_seconds"].items():
+        log(f"bench section {name}: {s:.3f} s")
+    check_bench(res, counts)
+
+    # 5. the kernels on the flagship's first Jacobian, beside cuSPARSE
     sim = build_sim(*FLAGSHIP, device)
-    step = make_step(sim)
-    torch.cuda.synchronize()
-    log(f"flagship set-up {time.perf_counter() - t0:.2f} s: "
-        f"{sim.mesh.num_interior_cells} cells + "
-        f"{sim.mesh.num_cells - sim.mesh.num_interior_cells} ghosts, "
-        f"{sim.mesh.num_cells * 3} rows, bands {sim.system.dia.offsets}")
-    dia.dia_spmv_launches.count = 0
-    t0 = time.perf_counter()
-    tries = run_steps(sim, step, log=log)
-    launches = dia.dia_spmv_launches.count
-    main_wall = time.perf_counter() - t0
-    accepted = [(dt, r, w) for dt, r, w in tries if r.converged
-                and not r.failed]
-    matvecs = sum(r.matvecs for _, r, _ in tries)
-    log(f"main path: {len(tries)} tries, {len(accepted)} accepted, "
-        f"{main_wall:.2f} s; dia_spmv launches {launches}, "
-        f"Krylov matvecs {matvecs}")
-    if len(accepted) < 2:
-        raise RuntimeError(f"flagship: {len(accepted)} of 2 steps accepted "
-                           f"in {len(tries)} tries")
-    # every Krylov matvec of the step launched the kernel: none took the
-    # plain version
-    if launches <= 0 or launches != matvecs:
-        raise RuntimeError(f"kernel launches {launches} != matvecs {matvecs}")
-    y = accepted[-1][1].y
-    if tuple(y.shape) != (sim.mesh.num_cells, 3) or not bool(
-            torch.isfinite(y).all()):
-        raise RuntimeError("flagship solution is not finite")
-    dof = 3 * sim.mesh.num_interior_cells
-    for dt, r, wall in accepted:
-        log(f"accepted step dt {dt:.6g} s: {wall:.3f} s, "
-            f"{dof / wall:.6g} dof/s, newton {r.iterations}, "
-            f"krylov {r.linear_iterations}, host_syncs {r.host_syncs}")
-
-    # 5. the kernel on the flagship's first Jacobian
     lhs0, _, _ = sim.lhs_at(sim.y0, sim.region0)
     coeffs = MethodCoeffs(c_lhs=1.0, dt_eff=1.0e5, const=-lhs0)
-    parts = sim.system.jacobian_parts(
-        sim.y0, sim.region0, sim.rock, coeffs, 0.0, 1.0e5,
-        tangent_dtype=torch.float32,
-    )
-    mj = dia.bands_from_blocks(sim.system.dia, sim.system.band_fill, *parts,
-                               dtype=torch.float32)
-    xj = torch.as_tensor(
-        rng.standard_normal((mj.num_rows, 3)).astype(np.float32),
-        device=device,
-    )
-    err, ms, plain_ms = compare_kernel(mj, xj, "flagship Jacobian", log)
-    del mj, xj, parts, sim, step, tries, accepted
+    kern = {}
+    for dtype in (torch.float32, torch.float64):
+        parts = sim.system.jacobian_parts(
+            sim.y0, sim.region0, sim.rock, coeffs, 0.0, 1.0e5,
+            tangent_dtype=dtype,
+        )
+        mj = dia.bands_from_blocks(sim.system.dia, sim.system.band_fill,
+                                   *parts, dtype=dtype)
+        xj = torch.as_tensor(rng.standard_normal((mj.num_rows, 3)),
+                             dtype=dtype, device=device)
+        kern[dtype] = compare_spmv(mj, xj, "flagship Jacobian", log,
+                                   library=True)
+        del parts, mj, xj
+    del sim
 
     # 6. the same small-box steps on the card and on the CPU
     dts = (1.0e4, 1.0e3, 1.0e3)
@@ -315,16 +380,34 @@ def main() -> int:
         torch.testing.assert_close(rg.y.cpu(), rc.y, rtol=2e-5, atol=2e-5)
     log(f"small box: {len(dts)} steps agree between the card and the CPU")
 
-    print(json.dumps({"kernels": [{
-        "name": "dia_spmv",
-        "route": "cuda",
-        "source": "waiwera_tpu_torch/csrc/dia_spmv.cu",
-        "replaces": "waiwera_tpu/ops/dia.py:982",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    bw = res["measured_bandwidth_gb_s"] * 1e9
+    entries = [
+        ("dia_spmv", "dia_spmv.cu", "waiwera_tpu/ops/dia.py:982",
+         kern[torch.float32]),
+        ("dia_spmv_f64", "dia_spmv.cu", "waiwera_tpu/ops/dia.py:982",
+         kern[torch.float64]),
+        ("stream_scale", "stream_scale.cu", "bench.py:309", kstream),
+    ]
+    kernels = []
+    for name, src, replaces, k in entries:
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"waiwera_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": counts[name],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+            # the same bytes over the bandwidth the stream kernel measured
+            "bound_measured_bw_ms": k["bytes"] / bw * 1e3,
+        })
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps(res))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -72,7 +72,7 @@ def test_solver_options_outside_the_slice_raise():
     n = sim.mesh.num_cells
     parts = (torch.ones(9, n), torch.zeros(9, 1), torch.zeros(9, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        sim.system.linear_operator_from_parts(parts, "dilu")
+        sim.system.linear_operator_from_parts(parts, "lu")
 
 
 def test_empty_fluid_matches_jax():

@@ -6,8 +6,10 @@
   f32, rtol 2e-5, atol 2e-4 (tests/test_solver.py:723).
 - Band fill from the f32 Jacobian parts of the flagship model on a
   small box (exact copies) and block-Jacobi.
-- The CUDA kernel against the plain version on the card (marked cuda;
-  skips without a CUDA device). The machine with the card has no JAX,
+- The f64 plain SpMV against jnp_matvec in f64 (rtol 1e-13), and the
+  wrapper's refusal of mixed, f16 and bf16 types.
+- The CUDA kernels (f32 and f64) against the plain version on the card
+  (marked cuda; skip without a CUDA device). The machine with the card has no JAX,
   so JAX is imported inside the tests that use it; run the card's
   cases there with
   `python -m pytest --noconftest -m cuda tests/test_torch_dia.py`.
@@ -162,6 +164,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         # x on a device that is neither the CPU nor CUDA
         tdia.dia_matvec(m, torch.as_tensor(x, device="meta"))
+    for xd, bd in ((torch.float64, torch.float32),
+                   (torch.float32, torch.float64),
+                   (torch.float16, torch.float16),
+                   (torch.bfloat16, torch.bfloat16)):
+        with pytest.raises(TypeError):
+            tdia.dia_matvec(m._replace(bands=m.bands.to(bd)),
+                            torch.as_tensor(x).to(xd))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_plain_spmv_f64_matches_jax(b):
+    import jax.numpy as jnp
+    from waiwera_tpu.ops import dia as jdia
+
+    rng = np.random.default_rng(40 + b)
+    bands = rng.standard_normal((len(OFFSETS), b * b, N_ROWS))
+    x = rng.standard_normal((N_ROWS, b))
+    mj = jdia.DIAMatrix(offsets=OFFSETS, bands=jnp.asarray(bands),
+                        block_size=b, num_rows=N_ROWS)
+    y_t = tdia.dia_matvec(_torch_matrix(bands, OFFSETS, b, N_ROWS),
+                          torch.as_tensor(x))
+    assert y_t.dtype == torch.float64
+    np.testing.assert_allclose(np_(y_t),
+                               np.asarray(jdia.jnp_matvec(mj, jnp.asarray(x))),
+                               rtol=1e-13, atol=1e-13)
 
 
 @pytest.mark.cuda
@@ -180,3 +207,22 @@ def test_cuda_kernel_matches_plain(b):
     y_ref = tdia.dia_matvec_reference(m, xc)
     scale = float(y_ref.abs().max())
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 3, 4])
+def test_cuda_f64_kernel_matches_plain(b):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(50 + b)
+    bands = rng.standard_normal((len(OFFSETS_WIDE), b * b, 4099))
+    x = torch.as_tensor(rng.standard_normal((4099, b)), device="cuda")
+    m = _torch_matrix(bands, OFFSETS_WIDE, b, 4099, device="cuda")
+    before = tdia.dia_spmv_f64_launches.count
+    y = tdia.dia_matvec(m, x)
+    torch.cuda.synchronize()
+    assert tdia.dia_spmv_f64_launches.count == before + 1
+    assert y.dtype == torch.float64
+    y_ref = tdia.dia_matvec_reference(m, x)
+    scale = float(y_ref.abs().max())
+    torch.testing.assert_close(y, y_ref, rtol=1e-12, atol=1e-12 * scale)

@@ -93,3 +93,35 @@ def test_step_matches_jax(runs, k):
 def test_two_phase_cells_appear(runs):
     """The steps exercise the region transitions (1 -> 4)."""
     assert 4 in set(np_(runs[-1][1].region).tolist())
+
+
+def test_f64_step_matches_jax():
+    """The f64/f64 policy of the bench's dtype table (f64 Jacobian, f64
+    BiCGStab: the f64 band SpMV) on the small box, from the initial state:
+    equal converged flag, Newton iterations and regions; BiCGStab
+    iterations within 2 (summation order); y within rtol 1e-8, atol 1e-8
+    (the f64 solves agree far below the BiCGStab tolerance)."""
+    from waiwera_tpu.solver import newton as jnewton
+    from waiwera_tpu_torch.solver import newton as tnewton
+
+    sj, st = jax_sim(), torch_sim()
+    kw = dict(max_iterations=8, min_iterations=1, linear_dtype="float64",
+              jacobian_dtype="float64")
+    dt = DTS[0]
+    lhs_j, fluid_j, _ = sj.lhs_at(sj.y0, sj.region0)
+    lhs_t, fluid_t, _ = st.lhs_at(st.y0, st.region0)
+    rj = sj.make_step_fn(jnewton.NewtonParams(**kw), "beuler")(
+        sj.y0, sj.region0, fluid_j.temperature, lhs_j, lhs_j,
+        jnp.asarray(0.0), jnp.asarray(dt), jnp.asarray(dt), jnp.asarray(1.0),
+        fluid_last=fluid_j, fluxes_last=sj.initial_fluxes(sj.y0, sj.region0),
+    )[0]
+    rt = st.make_step_fn(tnewton.NewtonParams(**kw), "beuler")(
+        st.y0, st.region0, fluid_t.temperature, lhs_t, lhs_t, 0.0, dt, dt,
+        1.0,
+    )[0]
+    assert rt.converged == bool(rj.converged) and rt.converged
+    assert rt.iterations == int(rj.iterations)
+    assert abs(rt.linear_iterations - int(rj.linear_iterations)) <= 2
+    np.testing.assert_array_equal(np_(rt.region), np.asarray(rj.region))
+    np.testing.assert_allclose(np_(rt.y), np.asarray(rj.y), rtol=1e-8,
+                               atol=1e-8)

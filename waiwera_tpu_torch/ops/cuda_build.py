@@ -52,17 +52,32 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless its library is already built;
     returns the library path. Raises if nvcc fails."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        check=True,
-    )
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
+
+
+def build_all(names, extra_flags=()) -> list:
+    """Compile every csrc/<name>.cu not yet built, one nvcc process per
+    source, all started together; returns the library paths. Raises if
+    any nvcc fails. extra_flags (e.g. "-Xptxas=-v") go to every nvcc."""
+    outs = [library_path(name) for name in names]
+    procs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs.append((subprocess.Popen(cmd), cmd, tmp, out))
+    failed = []
+    for proc, cmd, tmp, out in procs:
+        if proc.wait() == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(" ".join(cmd))
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}")
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:

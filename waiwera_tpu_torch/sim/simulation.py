@@ -1,14 +1,19 @@
 """Flow simulation: couples mesh, EOS, rocks, sources and boundary
 conditions into a one-timestep-try function (counterpart of
-waiwera_tpu/sim/simulation.py, for the flagship model's configuration).
+waiwera_tpu/sim/simulation.py, for the configurations of bench.py).
 
 Ported subset of the JSON schema (doc/user/setup_*.rst): thermodynamics
 "iapws"; eos "wge"/"wae" with air; default (fully mobile) relative
-permeability and zero capillarity; rock types with scalar properties
-assigned to listed cells or to all cells; constant or per-cell initial
-primaries and regions; Dirichlet boundaries; the sources of
-sim/network.py. The mesh is passed in. Anything else raises
-NotImplementedError naming the ROADMAP item that will port it.
+permeability and zero capillarity; mesh zones (cell arrays, boxes,
+combinations) and MINC; rock types with scalar properties assigned to
+listed cells, to zones or to all cells, and MINC fracture/matrix rock
+types; constant or per-cell initial primaries and regions; Dirichlet
+boundaries; the sources of sim/network.py. The mesh is passed in.
+Anything else raises NotImplementedError naming the ROADMAP item that
+will port it.
+
+The simulation runs on the CUDA device unless the caller names another
+device; without a CUDA device, Simulation(...) with no device raises.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from waiwera_tpu_torch import eos as eos_mod
 from waiwera_tpu_torch import thermo as thermo_mod
 from waiwera_tpu_torch.mesh.core import Mesh, add_boundaries, set_gravity
 from waiwera_tpu_torch.mesh.device import mesh_arrays
+from waiwera_tpu_torch.mesh.minc import apply_minc, parse_minc
 from waiwera_tpu_torch.physics import capillarity as cp_mod
 from waiwera_tpu_torch.physics import relperm as relperm_mod
 from waiwera_tpu_torch.physics.state import (
@@ -38,7 +44,7 @@ from waiwera_tpu_torch.solver.newton import NewtonParams, newton_solve
 from waiwera_tpu_torch.solver.system import System, method_coeffs
 
 _ROCK_TYPE_KEYS = {
-    "name", "cells", "permeability", "porosity", "wet_conductivity",
+    "name", "cells", "zones", "permeability", "porosity", "wet_conductivity",
     "dry_conductivity", "density", "specific_heat",
 }
 
@@ -47,21 +53,30 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a simulation runs on: `device` if given, else the
+    current CUDA device; without a CUDA device that is an error, not a
+    silent fall-back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is false); pass "
+            "device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class Simulation:
     def __init__(self, config: dict, mesh: Optional[Mesh] = None,
-                 device="cpu"):
+                 device=None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if mesh is None:
             raise _not_ported("building the mesh from the config", "A11")
         for key, item in (("tracer", "A13"), ("network", "A13")):
             if config.get(key):
                 raise _not_ported(f"config section {key!r}", item)
-        mesh_cfg = config.get("mesh")
-        if isinstance(mesh_cfg, dict) and (
-            mesh_cfg.get("zones") or mesh_cfg.get("minc")
-        ):
-            raise _not_ported("mesh zones and MINC", "A14")
 
         thermo_name = config.get("thermodynamics", "iapws")
         if isinstance(thermo_name, dict):
@@ -85,6 +100,14 @@ class Simulation:
         # sets one (flow_simulation.F90:782-847)
         if "gravity" in config:
             set_gravity(mesh, self._resolve_gravity(config))
+        self.zones = self._setup_zones(config, mesh)
+        # MINC appends matrix cells; it must precede the boundaries
+        mesh_cfg = config.get("mesh")
+        minc_cfg = mesh_cfg.get("minc") if isinstance(mesh_cfg, dict) else None
+        self.minc_zones = []
+        if minc_cfg:
+            self.minc_zones = parse_minc(minc_cfg, self.zones)
+            apply_minc(mesh, self.minc_zones)
         add_boundaries(mesh, config.get("boundaries", []) or [], npv)
         self.mesh_dev = mesh_arrays(mesh, self.device)
         self.rock = self._setup_rock(rock_cfg, mesh)
@@ -121,6 +144,69 @@ class Simulation:
             out[: len(arr)] = arr
         return out
 
+    @staticmethod
+    def _setup_zones(config, mesh: Mesh) -> dict:
+        """Zone name -> interior cell indices (zone.F90:37-80: cell
+        arrays, coordinate boxes, combinations of other zones)."""
+        mesh_cfg = config.get("mesh")
+        zcfg = (mesh_cfg.get("zones", {}) if isinstance(mesh_cfg, dict)
+                else {}) or {}
+        n = mesh.num_interior_cells
+        centroid = mesh.cell_centroid[:n]
+        zones = {}
+        pending = dict(zcfg)
+        while pending:
+            progressed = False
+            for name, spec in list(pending.items()):
+                if not isinstance(spec, dict):
+                    spec = {"cells": spec}
+                ztype = spec.get("type")
+                if ztype is None:
+                    ztype = ("array" if "cells" in spec else
+                             "combine" if ("+" in spec or "-" in spec)
+                             else "box")
+                if ztype == "array":
+                    cells = np.asarray(spec.get("cells", []), np.int64)
+                elif ztype == "combine":
+                    def names_of(v):
+                        return [] if v is None else [
+                            z for z in np.atleast_1d(v) if z is not None]
+
+                    plus = names_of(spec.get("+"))
+                    minus = names_of(spec.get("-"))
+                    if not all(z in zones for z in plus + minus):
+                        continue
+                    # '-' only starts from every cell (zone.F90 combine)
+                    sel = np.zeros(n, bool) if (plus or "+" in spec) \
+                        else np.ones(n, bool)
+                    for z in plus:
+                        sel[zones[z]] = True
+                    for z in minus:
+                        sel[zones[z]] = False
+                    cells = np.flatnonzero(sel)
+                else:  # box
+                    sel = np.ones(n, bool)
+                    for k, ax in enumerate("xyz"):
+                        if spec.get(ax) is not None:
+                            lo, hi = spec[ax]
+                            sel &= (centroid[:, k] >= lo) & (
+                                centroid[:, k] <= hi)
+                    cells = np.flatnonzero(sel)
+                zones[name] = cells
+                del pending[name]
+                progressed = True
+            if not progressed:
+                raise ValueError("cyclic or undefined zone references")
+        return zones
+
+    def _zone_cells(self, names) -> np.ndarray:
+        sel = np.zeros(self.mesh.num_interior_cells, bool)
+        for nm in np.atleast_1d(names):
+            if nm not in self.zones:
+                raise ValueError(f"unknown zone {nm!r}")
+            sel[self.zones[nm]] = True
+        return np.flatnonzero(sel)
+
     def _f64(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
 
@@ -136,7 +222,9 @@ class Simulation:
             extra = set(rt) - _ROCK_TYPE_KEYS
             if extra:
                 raise _not_ported(f"rock type keys {sorted(extra)}", "A13")
-            if "cells" in rt:
+            if "zones" in rt:
+                cells = self._zone_cells(rt["zones"])
+            elif "cells" in rt:
                 cells = np.asarray(rt["cells"], dtype=np.int64)
             else:
                 cells = np.arange(mesh.num_interior_cells)
@@ -152,6 +240,23 @@ class Simulation:
             poro[cells] = p_spec
             wetk[cells] = rt.get("wet_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
             dryk[cells] = rt.get("dry_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
+            dens[cells] = rt.get("density", DEFAULT_ROCK_DENSITY)
+            sph[cells] = rt.get("specific_heat", DEFAULT_SPECIFIC_HEAT)
+        # MINC fracture and matrix rock types by name
+        by_name = {rt.get("name", ""): rt
+                   for rt in rock_cfg.get("types", []) or []}
+        for cells, name in getattr(mesh, "minc_rock", []):
+            rt = by_name.get(name)
+            if rt is None:
+                raise ValueError(f"unknown MINC rock type {name!r}")
+            k = np.atleast_1d(np.asarray(
+                rt.get("permeability", DEFAULT_PERMEABILITY), np.float64))
+            if len(k) < 3:
+                k = np.concatenate([k, np.full(3 - len(k), k[-1])])
+            perm[cells] = k
+            wetk[cells] = rt.get("wet_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
+            dryk[cells] = rt.get("dry_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
+            poro[cells] = rt.get("porosity", DEFAULT_POROSITY)
             dens[cells] = rt.get("density", DEFAULT_ROCK_DENSITY)
             sph[cells] = rt.get("specific_heat", DEFAULT_SPECIFIC_HEAT)
         # ghost cells take the attached interior cell's rock, so that
@@ -190,6 +295,14 @@ class Simulation:
                 region[: mesh.num_interior_cells] = r
             else:
                 region[: len(r)] = r
+        # MINC matrix cells inherit their fracture cell's initial state
+        # (initial.F90:976+)
+        lvl = getattr(mesh, "minc_level", None)
+        if lvl is not None and (lvl > 0).any():
+            matrix = np.flatnonzero(lvl > 0)
+            parent = mesh.minc_parent[matrix]
+            primary[matrix] = primary[parent]
+            region[matrix] = region[parent]
         for b in mesh.boundaries:
             primary[b.cells] = b.primary
             region[b.cells] = b.region

@@ -1,8 +1,9 @@
-"""Block sparse row (BSR) structure, host side (counterpart of
-waiwera_tpu/solver/bsr.py: build_structure and face_block_positions).
+"""Block sparse row (BSR) matrices (counterpart of
+waiwera_tpu/solver/bsr.py).
 
-The port never assembles BSR data on the banded path; the structure
-decides whether the Jacobian is banded (ops.dia.dia_structure).
+The structure is host-built numpy; it decides whether the Jacobian is
+banded (ops.dia.dia_structure). Assembled BSR data is needed off the
+banded path only: the ELL operator, and the CPU reference of the bench.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class BSRStructure(NamedTuple):
@@ -21,6 +23,34 @@ class BSRStructure(NamedTuple):
     diag_pos: np.ndarray  # [N] position of the diagonal block of each row
     num_rows: int
     block_size: int
+
+
+class BSRMatrix(NamedTuple):
+    structure: BSRStructure
+    data: torch.Tensor  # [nnzb, b, b]
+
+    def diag_blocks(self) -> torch.Tensor:
+        """[N, b, b] diagonal blocks."""
+        pos = torch.as_tensor(self.structure.diag_pos, device=self.data.device)
+        return self.data[pos]
+
+
+def assemble(structure: BSRStructure, diag: torch.Tensor,
+             face_lr: torch.Tensor, face_rl: torch.Tensor,
+             pos_lr: torch.Tensor, pos_rl: torch.Tensor) -> BSRMatrix:
+    """Matrix data from diagonal blocks [N, b, b] and per-face
+    off-diagonal blocks [F, b, b] accumulated at their positions
+    (face_block_positions, as tensors on the data's device)."""
+    nnzb = len(structure.indices)
+    b = structure.block_size
+    data = diag.new_zeros((nnzb, b, b))
+    data.index_add_(
+        0, torch.as_tensor(structure.diag_pos, device=diag.device), diag
+    )
+    if face_lr is not None and face_lr.shape[0]:
+        data.index_add_(0, pos_lr, face_lr)
+        data.index_add_(0, pos_rl, face_rl)
+    return BSRMatrix(structure=structure, data=data)
 
 
 def build_structure(num_cells: int, face_cells: np.ndarray,

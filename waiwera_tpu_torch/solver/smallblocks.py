@@ -1,5 +1,6 @@
 """Small dense block kernels in element-major layout (counterpart of
-waiwera_tpu/solver/smallblocks.py: invert_blocks_em, apply_blocks_em).
+waiwera_tpu/solver/smallblocks.py: invert_blocks_em, matmul_em,
+apply_blocks_em, em_from_batch, batch_from_em).
 
 Blocks are stored as [b*b, N]: row i*b+j holds block element (i, j), so
 every operation is a handful of elementwise ops over [N] vectors.
@@ -50,6 +51,34 @@ def invert_blocks_em(a2: torch.Tensor) -> torch.Tensor:
                 cof = -cof
             rows.append(cof * inv_det)
     return torch.stack(rows)
+
+
+def matmul_em(a2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """[b*b, N] @ [b*b, N] blockwise product, element-major."""
+    bb = a2.shape[0]
+    b = int(round(bb ** 0.5))
+    rows = []
+    for i in range(b):
+        for j in range(b):
+            acc = None
+            for k in range(b):
+                t = a2[i * b + k] * b2[k * b + j]
+                acc = t if acc is None else acc + t
+            rows.append(acc)
+    return torch.stack(rows)
+
+
+def em_from_batch(a: torch.Tensor) -> torch.Tensor:
+    """[N, b, b] -> [b*b, N]."""
+    n, b, _ = a.shape
+    return a.reshape(n, b * b).T
+
+
+def batch_from_em(a2: torch.Tensor) -> torch.Tensor:
+    """[b*b, N] -> [N, b, b]."""
+    bb, n = a2.shape
+    b = int(round(bb ** 0.5))
+    return a2.T.reshape(n, b, b)
 
 
 def apply_blocks_em(a2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -15,17 +15,23 @@ indexed gathers and index_add scatters in the canonical face order.
 
 from __future__ import annotations
 
+from functools import cached_property
 from typing import NamedTuple
 
 import torch
 
 from waiwera_tpu_torch.mesh.device import MeshArrays
-from waiwera_tpu_torch.ops import dia
+from waiwera_tpu_torch.ops import dia, ell
 from waiwera_tpu_torch.physics import assembly
 from waiwera_tpu_torch.physics.state import FluidState, RockState
 from waiwera_tpu_torch.sim.sources import source_inflows
 from waiwera_tpu_torch.solver import bsr
-from waiwera_tpu_torch.solver.smallblocks import invert_blocks_em
+from waiwera_tpu_torch.solver.smallblocks import (
+    apply_blocks_em,
+    batch_from_em,
+    em_from_batch,
+    invert_blocks_em,
+)
 
 
 class MethodCoeffs(NamedTuple):
@@ -61,15 +67,43 @@ class System:
             mesh.num_cells, face_cells, self.npv
         )
         self.dia = dia.dia_structure(self.structure, is_ghost)
+        device = mesh.is_ghost.device
+        # hybrid band + indexed tail (MINC fracture-matrix faces, boundary
+        # faces): the bands take faces[:f_live], the tail the rest
+        self.hybrid = None
+        self.f_live = len(face_cells)
+        if self.dia is None:
+            split = dia.hybrid_split(face_cells, is_ghost, mesh.num_cells,
+                                     self.npv)
+            if split is not None:
+                self.hybrid, self.f_live = split
+        self.bands = self.dia if self.dia is not None else self.hybrid
         self.band_fill = (
-            dia.band_fill(self.dia, face_cells, is_ghost,
-                          device=mesh.is_ghost.device)
-            if self.dia is not None
+            dia.band_fill(self.bands, face_cells[:self.f_live], is_ghost,
+                          device=device)
+            if self.bands is not None
             else None
         )
         self._mesh_by_dtype = {torch.float64: mesh}
         self.cl = mesh.face_cells[:, 0]
         self.cr = mesh.face_cells[:, 1]
+        self._tail_cl = self.cl[self.f_live:]
+        self._tail_cr = self.cr[self.f_live:]
+
+    @cached_property
+    def _face_positions(self):
+        """(pos_lr, pos_rl) of every face's blocks in the BSR data."""
+        lr, rl = bsr.face_block_positions(
+            self.structure, self.mesh.face_cells.cpu().numpy()
+        )
+        device = self.mesh.is_ghost.device
+        return (torch.as_tensor(lr, device=device),
+                torch.as_tensor(rl, device=device))
+
+    @cached_property
+    def ell_tables(self) -> ell.ELLStructure:
+        return ell.ell_structure(self.structure,
+                                 device=self.mesh.is_ghost.device)
 
     def mesh_as(self, dtype: torch.dtype) -> MeshArrays:
         """The mesh with floating geometry in dtype (cast once), so an
@@ -271,29 +305,105 @@ class System:
             either_ghost, 0.0, -dt_eff * av_r * dflux_l[v][:, ii]))
         return diag2, lr2, rl2
 
+    def residual_and_jacobian_parts(self, y, region, rock, coeffs, t0, t1,
+                                    tangent_dtype=None):
+        """(r, L, fluxes, err, (diag2, lr2, rl2)): the f64 residual and the
+        Jacobian parts (tangent chain in tangent_dtype, default y's)."""
+        r, L, fluxes, err = self.residual(y, region, rock, coeffs, t0, t1)
+        parts = self.jacobian_parts(y, region, rock, coeffs, t0, t1,
+                                    tangent_dtype=tangent_dtype)
+        return r, L, fluxes, err, parts
+
+    def residual_and_jacobian(self, y, region, rock, coeffs, t0, t1,
+                              tangent_dtype=None):
+        """(r, L, fluxes, err, BSRMatrix)."""
+        r, L, fluxes, err, parts = self.residual_and_jacobian_parts(
+            y, region, rock, coeffs, t0, t1, tangent_dtype=tangent_dtype
+        )
+        return r, L, fluxes, err, self.assemble_bsr(parts)
+
+    def assemble_bsr(self, parts) -> bsr.BSRMatrix:
+        """Element-major block parts (diag2 [b*b, N], J[l,r] and J[r,l]
+        [b*b, F]) accumulated into BSR data."""
+        diag2, lr2, rl2 = parts
+        pos_lr, pos_rl = self._face_positions
+        return bsr.assemble(self.structure, batch_from_em(diag2),
+                            batch_from_em(lr2), batch_from_em(rl2),
+                            pos_lr, pos_rl)
+
     # -- linear operator -----------------------------------------------
 
-    def linear_operator_from_parts(self, parts, pc_name: str, dtype=None):
-        """(matvec, preconditioner) from block parts on a banded mesh:
-        bands filled by index, block-Jacobi factored in the parts' dtype
-        and applied in `dtype`."""
-        if self.dia is None:
+    def make_linear_operator(self, mat: bsr.BSRMatrix, pc_name: str,
+                             dtype=None):
+        """(matvec, preconditioner) from assembled BSR data through the
+        ELL layout (the JAX package's non-banded route): block-Jacobi,
+        which line and cpr fall back to off a box, or none. The BSR-route
+        DILU and LU are not ported."""
+        if pc_name not in ("none", "bjacobi", "jacobi", "line", "zline",
+                           "cpr", "cprmg"):
             raise NotImplementedError(
-                "non-banded meshes (ELL, hybrid) are not ported yet "
-                "(ROADMAP A14)"
+                f"preconditioner {pc_name!r} on the ELL route is not "
+                "ported yet (ROADMAP A14)"
             )
-        if pc_name not in ("bjacobi", "jacobi", "none"):
-            raise NotImplementedError(
-                f"preconditioner {pc_name!r} is not ported yet (ROADMAP A14)"
-            )
-        diag2, lr2, rl2 = parts
-        m = dia.bands_from_blocks(
-            self.dia, self.band_fill, diag2, lr2, rl2, dtype
-        )
-
-        def mv(x):
-            return dia.dia_matvec(m, x)
-
+        mv = ell.to_ell(mat, self.ell_tables, dtype).matvec
         if pc_name == "none":
             return mv, (lambda r: r)
-        return mv, dia.dia_block_jacobi_em(invert_blocks_em(diag2), dtype)
+        dinv2 = invert_blocks_em(em_from_batch(mat.diag_blocks()))
+        return mv, dia.dia_block_jacobi_em(dinv2, dtype)
+
+    def linear_operator_from_parts(self, parts, pc_name: str, dtype=None):
+        """(matvec, preconditioner) from block parts.
+
+        Banded and hybrid meshes: bands filled by index in the parts'
+        dtype (so factorisations see full precision) and applied in
+        `dtype`; the hybrid tail faces[f_live:] is added to the band SpMV
+        with index_add. pc_name: none, bjacobi/jacobi, line/zline,
+        cpr/cprmg, or asm/ilu/dilu/sgs (the band DILU, which on a hybrid
+        mesh factors the banded part only). Other meshes take
+        make_linear_operator on assembled BSR data."""
+        if pc_name == "lu":
+            raise NotImplementedError(
+                "preconditioner 'lu' is not ported yet (ROADMAP A14)"
+            )
+        if self.bands is None:
+            return self.make_linear_operator(self.assemble_bsr(parts),
+                                             pc_name, dtype=dtype)
+        diag2, lr2, rl2 = parts
+        m64 = dia.bands_from_blocks(self.bands, self.band_fill, diag2, lr2,
+                                    rl2)
+        m = m64 if dtype is None else m64._replace(bands=m64.bands.to(dtype))
+        if self.hybrid is None or self._tail_cl.numel() == 0:
+            def mv(x):
+                return dia.dia_matvec(m, x)
+        else:
+            lr_t = lr2[:, self.f_live:].to(m.bands.dtype)
+            rl_t = rl2[:, self.f_live:].to(m.bands.dtype)
+            tcl, tcr = self._tail_cl, self._tail_cr
+
+            def mv(x):
+                y = dia.dia_matvec(m, x)
+                y.index_add_(0, tcl, apply_blocks_em(lr_t, x[tcr]))
+                return y.index_add_(0, tcr, apply_blocks_em(rl_t, x[tcl]))
+
+        def bjacobi():
+            return dia.dia_block_jacobi_em(invert_blocks_em(diag2), dtype)
+
+        if pc_name == "none":
+            pc = lambda r: r  # noqa: E731
+        elif pc_name in ("bjacobi", "jacobi"):
+            pc = bjacobi()
+        elif pc_name in ("line", "zline"):
+            pc = dia.dia_line_pc_em(m64, dtype=dtype) or bjacobi()
+        elif pc_name in ("cpr", "cprmg"):
+            from waiwera_tpu_torch.ops import mg
+
+            built = mg.pressure_levels(m64, dtype=dtype)
+            pc = bjacobi()
+            if built is not None:
+                levels, dims = built
+                pc = mg.cpr_apply(levels, dims, mv, pc, self.mesh.num_cells)
+        elif pc_name in ("asm", "ilu", "dilu", "sgs"):
+            pc = dia.dia_dilu_em(m64, dtype=dtype)
+        else:
+            raise ValueError(f"unknown preconditioner: {pc_name!r}")
+        return mv, pc
