@@ -21,7 +21,8 @@ Phases (any failure raises and the exit code is nonzero):
    process at its default sizes with every section (flagship 128 x 64
    x 64 settled step, stage breakdown, SpMV roofline with the stream
    kernel's bandwidth, reduced-box step, f64/f64 dtype table, ELL, MINC,
-   CPU reference, preconditioner sweep), with every kernel count set to
+   CPU reference, preconditioner sweep with each preconditioner held
+   for 2 accepted steps instead of 4), with every kernel count set to
    0 just before and read just after. Checks: the flagship settle
    accepted >= 2 steps, kernel launches = Krylov matvecs > 0 on the
    bjacobi sections (no matvec took the plain version), finite y;
@@ -33,12 +34,28 @@ Phases (any failure raises and the exit code is nonzero):
    torch.sparse.mm on the same matrix as a CUDA CSR tensor;
 6. the same three small-box steps on the card and on the CPU (plain
    SpMV), which must agree as the CPU port agrees with the JAX package
-   (rtol 2e-5, atol 2e-5).
+   (rtol 2e-5, atol 2e-5);
+7. the model run, with the kernel counts set to 0 just before and read
+   just after: the flagship model written as a JSON file (mesh section
+   128 x 64 x 64, f32 Jacobian and BiCGStab, adaptive stepping from
+   1e5 s, 6 steps, a checkpoint at 2e4 s, output every 2nd step with
+   the water flux) and run with no device named through cli.run_json
+   where h5py imports, else through Simulation(config) + Timestepper
+   with an in-memory output of the same write signature; the mesh
+   comes from the config and the YAML log is written. Checks: the run
+   is not aborted, 6 steps, output times increase and hold the
+   checkpoint time, finite final state of 1,597,440 unknowns, dia_spmv
+   launches = Krylov matvecs > 0, the log ends with timestepper end.
+   Then the same JSON at 48 x 32 x 32 with BDF2 for 3 steps (checkpoint
+   at 1e4 s), and the 5 x 4 x 3 box for 2 steps through the Timestepper
+   on the card and on the CPU: the same tries and sizes, y within rtol
+   2e-5, atol 2e-5.
 
-Prints each bench section's wall time on its own line, then the bench's
-full JSON record, one JSON line {"kernels": [...]} and the card's
-nvidia-smi name and power limit; the last line is
-{"ok": true, "device": {...}}. Exits nonzero without a CUDA device.
+Prints each bench section's wall time on its own line, then the model
+run's times and counts, the bench's full JSON record, one JSON line
+{"kernels": [...]} and the card's nvidia-smi name and power limit; the
+last line is {"ok": true, "device": {...}}. Exits nonzero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -47,6 +64,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,7 +81,7 @@ from waiwera_tpu_torch.bench import (  # noqa: E402
 )
 
 __all__ = ["build_sim", "flagship_config", "flagship_spacing", "make_step",
-           "run_steps"]
+           "model_config", "model_run", "run_steps"]
 
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FLAGSHIP = (128, 64, 64)
@@ -253,6 +271,155 @@ def log(msg):
     print(msg, flush=True)
 
 
+# checkpoint times, s. A checkpoint below the first step size clips the
+# first try to itself, so the run reaches it on its first accepted steps:
+# the flagship accepts 2e4 s from its initial state, the smaller boxes
+# 1e4 s or, after one refusal, its fifth three times over
+CHECKPOINT = 2.0e4
+CHECKPOINT_SMALL = 1.0e4
+
+
+def model_config(nx, ny, nz, method="beuler", steps=6,
+                 checkpoint=CHECKPOINT):
+    """The flagship model as a whole JSON model: its mesh as a config
+    section, the bench's solver settings (f32 Jacobian, f32 BiCGStab
+    with block-Jacobi, at least one Newton iteration), adaptive stepping
+    from 1e5 s, a checkpoint and flux output."""
+    cfg = flagship_config(nx, ny, nz)
+    (dx, dy, dz), _ = flagship_spacing(nx, ny, nz)
+    cfg["mesh"] = {"type": "rectangular", "dx": dx, "dy": dy, "dz": dz}
+    cfg["time"] = {"step": {
+        "method": method, "size": 1.0e5, "adapt": {"on": True},
+        "maximum": {"number": steps, "tries": 10},
+        "solver": {
+            "nonlinear": {"minimum": {"iterations": 1}},
+            "linear": {"dtype": "float32", "jacobian_dtype": "float32",
+                       "preconditioner": {"type": "bjacobi"}},
+        },
+    }}
+    cfg["output"] = {"frequency": 2, "checkpoint": {"time": [checkpoint]},
+                     "fields": {"flux": ["water"]}}
+    return cfg
+
+
+class MemoryOutput:
+    """Output of a run kept in memory, for a machine without h5py: the
+    write signature of sim/output.py HDF5Output; each record keeps the
+    time, the interior pressures and the water flux on the host."""
+
+    filename = None
+    face_group = True  # flux output is on
+
+    def __init__(self, sim):
+        self.n = sim.mesh.num_interior_cells
+        self.times, self.pressure, self.flux_water = [], [], []
+
+    def write(self, index, time, fluid, source_data=None, tracer=None,
+              fluxes=None):
+        self.times.append(float(time))
+        self.pressure.append(fluid.pressure[: self.n].cpu().numpy())
+        self.flux_water.append(np.asarray(fluxes)[:, 0].copy())
+
+    def close(self):
+        pass
+
+
+def _h5py_imports() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def model_run(workdir, size, method="beuler", steps=6, device=None,
+              use_h5=None, log=log, checkpoint=CHECKPOINT):
+    """Write the model JSON into workdir and run it through the port's
+    entry points (device None: the CUDA device). Returns (Timestepper,
+    output times, wall seconds, which entry point ran). Raises if the
+    run aborted, took another number of steps, wrote times that do not
+    increase or miss the checkpoint, ended in a non-finite state, or
+    left a log that does not end with the timestepper's end."""
+    from waiwera_tpu_torch import cli
+
+    name = f"model_{method}_{'x'.join(map(str, size))}"
+    fn = os.path.join(workdir, name + ".json")
+    with open(fn, "w") as f:
+        json.dump(model_config(*size, method=method, steps=steps,
+                               checkpoint=checkpoint), f)
+    log_fn = os.path.join(workdir, name + ".yaml")
+    if use_h5 is None:
+        use_h5 = _h5py_imports()
+    t0 = time.perf_counter()
+    if use_h5:
+        entry = "cli.run_json"
+        ts = cli.run_json(fn, device=device, overrides=[
+            "output.filename=" + json.dumps(os.path.join(workdir,
+                                                         name + ".h5"))])
+        import h5py
+
+        with h5py.File(os.path.join(workdir, name + ".h5")) as f:
+            times = np.asarray(f["time"])[:, 0].tolist()
+            nflux = f["face_fields/flux_water"].shape
+        if nflux != (len(times), ts.sim.mesh.num_faces):
+            raise RuntimeError(f"flux_water has shape {nflux}")
+    else:
+        from waiwera_tpu_torch.sim.simulation import Simulation
+        from waiwera_tpu_torch.sim.timestepper import Timestepper
+        from waiwera_tpu_torch.utils.config import TrackedConfig
+        from waiwera_tpu_torch.utils.logging import Logger
+
+        entry = "Simulation + Timestepper (no h5py: in-memory output)"
+        with open(fn) as f:
+            config = TrackedConfig(json.load(f))
+        sim = Simulation(config, device=device)
+        out = MemoryOutput(sim)
+        logger = Logger(filename=log_fn)
+        try:
+            ts = Timestepper(config, sim, output=out, logger=logger)
+            config.defaults.log_to(logger)
+            ts.run()
+        finally:
+            logger.close()
+        times = out.times
+        if any(len(fx) != sim.mesh.num_faces for fx in out.flux_water):
+            raise RuntimeError("flux_water of another length than the faces")
+    wall = time.perf_counter() - t0
+    if ts.aborted or ts.taken != steps:
+        raise RuntimeError(f"{name}: aborted {ts.aborted}, {ts.taken} steps "
+                           f"of {steps}")
+    if not all(b > a for a, b in zip(times, times[1:])):
+        raise RuntimeError(f"{name}: output times {times} do not increase")
+    if checkpoint not in times:
+        raise RuntimeError(f"{name}: checkpoint {checkpoint} not in {times}")
+    n = ts.sim.mesh.num_cells
+    if tuple(ts.final_y.shape) != (n, 3) or not bool(
+            torch.isfinite(ts.final_y).all()):
+        raise RuntimeError(f"{name}: final state {tuple(ts.final_y.shape)} "
+                           "or not finite")
+    with open(log_fn) as f:
+        last = f.read().splitlines()[-1]
+    if not last.startswith("- [info, timestepper, end, "):
+        raise RuntimeError(f"{name}: the log ends with {last!r}")
+    st = ts.stats
+    syncs = st["host_syncs_step"] + st["host_syncs_timestepper"]
+    refused = sum(not ok for _, ok in ts.tried)
+    reductions = len([ln for ln in open(log_fn)
+                      if "[warn, timestep, reduction" in ln])
+    log(f"{name} through {entry}: wall {wall:.2f} s, run loop "
+        f"{sum(st['step_seconds']):.2f} s, per accepted step "
+        f"{[round(x, 3) for x in st['step_seconds']]} s, accepted sizes "
+        f"{[s for s, _, _ in ts.accepted]}, tries {st['tries']} (refused "
+        f"{refused}, logged reductions {reductions}), Newton "
+        f"{st['newton_iterations']}, BiCGStab {st['linear_iterations']}, "
+        f"matvecs {st['matvecs']}, host syncs per try "
+        f"{syncs / st['tries']:.1f}"
+        f" (of which the timestepper adds "
+        f"{st['host_syncs_timestepper'] / st['tries']:.2f}), output "
+        f"{st['output_seconds']:.3f} s over {len(times)} records at {times}")
+    return ts, times, wall, entry
+
+
 def check_bench(res, counts):
     """The main path's checks on the bench record and kernel counts."""
     op = res["operating_point"]
@@ -334,8 +501,10 @@ def main() -> int:
               stream.stream_scale_launches):
         c.count = 0
     t0 = time.perf_counter()
-    # no device named: the entry point takes the CUDA device by default
-    b = bench.Bench(emit=lambda r: None, log=log)
+    # no device named: the entry point takes the CUDA device by default.
+    # The preconditioner sweep holds each pc for 2 accepted steps, not 4,
+    # to leave the script's time to the model run of phase 7
+    b = bench.Bench(emit=lambda r: None, log=log, sweep_settle=2)
     res = b.run()
     counts = {"dia_spmv": dia.dia_spmv_launches.count,
               "dia_spmv_f64": dia.dia_spmv_f64_launches.count,
@@ -380,6 +549,51 @@ def main() -> int:
         torch.testing.assert_close(rg.y.cpu(), rc.y, rtol=2e-5, atol=2e-5)
     log(f"small box: {len(dts)} steps agree between the card and the CPU")
 
+    # 7. the model run: JSON file -> Simulation(config) -> Timestepper ->
+    # output and log, no device named
+    counters = {"dia_spmv": dia.dia_spmv_launches,
+                "dia_spmv_f64": dia.dia_spmv_f64_launches,
+                "stream_scale": stream.stream_scale_launches}
+    for c in counters.values():
+        c.count = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        ts, _, run_wall, entry = model_run(workdir, FLAGSHIP)
+        run_counts = {k: c.count for k, c in counters.items()}
+        if ts.sim.device.type != "cuda":
+            raise RuntimeError(f"the model run took {ts.sim.device}")
+        if tuple(ts.final_y.shape) != (FLAGSHIP_ROWS, 3):
+            raise RuntimeError(f"final state {tuple(ts.final_y.shape)}")
+        if run_counts["dia_spmv"] <= 0 or \
+                run_counts["dia_spmv"] != ts.stats["matvecs"]:
+            raise RuntimeError(
+                f"model run: kernel launches {run_counts['dia_spmv']} != "
+                f"Krylov matvecs {ts.stats['matvecs']}")
+        log(f"model run: {ts.final_y.numel()} unknowns, launches "
+            f"{run_counts}, final time {ts.final_time:.6g} s")
+        del ts
+        tb, _, _, _ = model_run(workdir, bench.REDUCED, method="bdf2",
+                                steps=3, checkpoint=CHECKPOINT_SMALL)
+        del tb
+        pair = []
+        for dev in (None, "cpu"):
+            tsm, _, _, _ = model_run(workdir, (5, 4, 3), steps=2, device=dev,
+                                     use_h5=False, log=lambda m: None,
+                                     checkpoint=CHECKPOINT_SMALL)
+            pair.append(tsm)
+    card, cpu = pair
+    if [c for _, c in card.tried] != [c for _, c in cpu.tried]:
+        raise RuntimeError("small model run: tries differ between the card "
+                           f"and the CPU: {card.tried} {cpu.tried}")
+    np.testing.assert_allclose([d for d, _ in card.tried],
+                               [d for d, _ in cpu.tried], rtol=1e-12)
+    torch.testing.assert_close(card.final_y.cpu(), cpu.final_y, rtol=2e-5,
+                               atol=2e-5)
+    log(f"small model run: {len(card.tried)} tries and {card.taken} steps "
+        "agree between the card and the CPU")
+    log(f"phase 7 (model run) {time.perf_counter() - t0:.2f} s, of which the "
+        f"flagship run {run_wall:.2f} s through {entry}")
+
     bw = res["measured_bandwidth_gb_s"] * 1e9
     entries = [
         ("dia_spmv", "dia_spmv.cu", "waiwera_tpu/ops/dia.py:982",
@@ -396,6 +610,7 @@ def main() -> int:
             "source": f"waiwera_tpu_torch/csrc/{src}",
             "replaces": replaces,
             "launches": counts[name],
+            "launches_model_run": run_counts[name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],

@@ -37,42 +37,147 @@ def test_flagship_config_builds():
     assert sim.y0.dtype == torch.float64 and sim.region0.dtype == torch.int32
 
 
-@pytest.mark.parametrize("cfg, item", [
-    (_with(["eos", "name"], "we"), "A12"),
-    (_with(["thermodynamics"], "ifc67"), "A12"),
-    (_with(["rock", "relative_permeability"], {"type": "linear"}), "A12"),
-    (_with(["rock", "capillary_pressure"], {"type": "linear"}), "A12"),
-    (_with(["source", 0, "limiter"], {"total": 5.0}), "A13"),
-    (_with(["source", 1, "rate"], [[0.0, 1.0], [1e5, 2.0]]), "A13"),
-    (_with(["tracer"], [{"name": "t"}]), "A13"),
-    (_with(["rock", "types", 0, "porosity"], [0.1, 0.2]), "A13"),
-    (_with(["initial", "filename"], "restart.h5"), "A11"),
+_NOT_PORTED = NotImplementedError
+
+
+@pytest.mark.parametrize("cfg, error, match", [
+    (_with(["eos", "name"], "we"), _NOT_PORTED, "ROADMAP A12"),
+    (_with(["thermodynamics"], "ifc67"), _NOT_PORTED, "ROADMAP A12"),
+    (_with(["rock", "relative_permeability"], {"type": "linear"}),
+     _NOT_PORTED, "ROADMAP A12"),
+    (_with(["rock", "capillary_pressure"], {"type": "linear"}), _NOT_PORTED,
+     "ROADMAP A12"),
+    (_with(["source", 0, "limiter"], {"total": 5.0}), _NOT_PORTED,
+     "ROADMAP A13"),
+    (_with(["source", 1, "rate"], [[0.0, 1.0], [1e5, 2.0]]), _NOT_PORTED,
+     "ROADMAP A13"),
+    (_with(["tracer"], [{"name": "t"}]), _NOT_PORTED, "ROADMAP A13"),
+    (_with(["rock", "types", 0, "porosity"], [0.1, 0.2]), _NOT_PORTED,
+     "ROADMAP A13"),
+    # a restart is read now: a file that is not there is an error of the
+    # file, not of the port
+    (_with(["initial", "filename"], "no_such_restart.h5"), OSError,
+     "no_such_restart.h5"),
+    (_with(["source", 0, "separator"], {"pressure": 5.0e5}), _NOT_PORTED,
+     "ROADMAP A13"),
+    (_with(["network"], {"group": [{"name": "g", "in": ["a"]}]}),
+     _NOT_PORTED, "ROADMAP A13"),
+    (_with(["boundaries", 0, "tracer"], 1.0), _NOT_PORTED, "ROADMAP A13"),
 ], ids=["eos_we", "ifc67", "relperm", "capillarity", "limiter",
-        "rate_table", "tracer", "rock_table", "restart"])
-def test_config_outside_the_slice_raises(cfg, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        "rate_table", "tracer", "rock_table", "restart", "separator",
+        "network", "boundary_tracer"])
+def test_config_outside_the_slice_raises(cfg, error, match):
+    with pytest.raises(error, match=match):
         _sim(cfg)
 
 
 def test_mesh_from_config_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        _sim(flagship_config(3, 2, 2), mesh=False)
+    """A mesh section generates the mesh; a mesh file waits for the
+    readers, and no mesh at all is an error."""
+    cfg = flagship_config(3, 2, 2)
+    with pytest.raises(ValueError, match="no mesh specified"):
+        _sim(cfg, mesh=False)
+    for spec in ("box.msh", {"filename": "box.exo"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+            _sim(dict(cfg, mesh=spec), mesh=False)
+    with pytest.raises(ValueError, match="cannot build mesh"):
+        _sim(dict(cfg, mesh={"type": "voronoi"}), mesh=False)
+    sim = _sim(dict(cfg, mesh={"type": "rectangular", "dx": [50.0] * 3,
+                               "dy": [50.0] * 2, "dz": [20.0] * 2}),
+               mesh=False)
+    assert sim.mesh.num_interior_cells == 12 and sim.mesh.dim == 3
+    assert sim.tracers is None and sim.rock_controls == []
+
+
+@pytest.mark.parametrize("path, value, item", [
+    (["time", "step", "solver", "linear", "type"], "gmres", "A14"),
+    (["time", "step", "solver", "nonlinear", "monitor"], True, "A16"),
+], ids=["gmres", "monitor"])
+def test_timestepper_options_outside_the_slice_raise(path, value, item):
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+
+    cfg = _with(path, value)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        Timestepper(cfg, _sim(cfg))
+
+
+@pytest.mark.parametrize("attr, value", [
+    ("tracers", object()), ("rock_controls", [("porosity", None, None)]),
+], ids=["tracers", "rock_controls"])
+def test_timestepper_refuses_tracers_and_rock_controls(attr, value):
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+
+    cfg = flagship_config(3, 2, 2)
+    sim = _sim(cfg)
+    setattr(sim, attr, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        Timestepper(cfg, sim)
+
+
+def test_timestepper_reads_the_solver_section():
+    """Every key of time.step.solver arrives in NewtonParams, the gmres
+    restart included (carried for ROADMAP A14)."""
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+
+    cfg = _with(["time", "step", "solver"], {
+        "nonlinear": {"maximum": {"iterations": 6},
+                      "minimum": {"iterations": 2},
+                      "tolerance": {"function": {"relative": 1e-6,
+                                                 "absolute": 2.0},
+                                    "update": {"relative": 1e-9,
+                                               "absolute": 3.0}}},
+        "linear": {"type": "bcgs", "preconditioner": {"type": "ilu"},
+                   "tolerance": {"relative": 1e-7},
+                   "maximum": {"iterations": 77},
+                   "options": {"gmres": {"restart": 12}},
+                   "dtype": "float32", "jacobian_dtype": "float32"},
+    })
+    p = Timestepper(cfg, _sim(cfg)).newton_params
+    assert (p.max_iterations, p.min_iterations) == (6, 2)
+    assert (p.function_rtol, p.function_atol) == (1e-6, 2.0)
+    assert (p.update_rtol, p.update_atol) == (1e-9, 3.0)
+    assert (p.linear_method, p.linear_pc) == ("bcgs", "ilu")
+    assert (p.linear_rtol, p.linear_max_iterations) == (1e-7, 77)
+    assert p.linear_restart == 12
+    assert (p.linear_dtype, p.jacobian_dtype) == ("float32", "float32")
 
 
 def test_solver_options_outside_the_slice_raise():
     from waiwera_tpu_torch.solver import krylov
-    from waiwera_tpu_torch.solver.system import method_coeffs
 
     sim = _sim(flagship_config(3, 2, 2))
-    lhs, _, _ = sim.lhs_at(sim.y0, sim.region0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        method_coeffs("bdf2", 1e4, lhs)
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         krylov.solve("gmres", lambda v: v, torch.ones(4, 3))
+    with pytest.raises(ValueError, match="unknown linear solver"):
+        krylov.solve("sor", lambda v: v, torch.ones(4, 3))
     n = sim.mesh.num_cells
     parts = (torch.ones(9, n), torch.zeros(9, 1), torch.zeros(9, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         sim.system.linear_operator_from_parts(parts, "lu")
+
+
+@pytest.mark.parametrize("method, first", [
+    ("beuler", 1.0), ("beuler", 0.0), ("bdf2", 1.0), ("bdf2", 0.0),
+    ("directss", 0.0),
+], ids=["beuler_first", "beuler", "bdf2_first", "bdf2", "directss"])
+def test_method_coeffs_match_jax(method, first):
+    """The residual coefficients of every method, on random balances:
+    equal to the JAX package's to the last bit but one (the same f64
+    operations in the same order)."""
+    import jax.numpy as jnp
+    from waiwera_tpu.solver.system import method_coeffs as jcoeffs
+    from waiwera_tpu_torch.solver.system import method_coeffs as tcoeffs
+
+    rng = np.random.default_rng(7)
+    lhs, lhs2 = rng.standard_normal((2, 9, 3)) * 1e3
+    dt, dt_last = 1234.5, 777.25
+    cj = jcoeffs(method, jnp.asarray(dt), jnp.asarray(dt_last),
+                 jnp.asarray(first), jnp.asarray(lhs), jnp.asarray(lhs2))
+    ct = tcoeffs(method, dt, dt_last, first, torch.as_tensor(lhs),
+                 torch.as_tensor(lhs2))
+    assert ct.c_lhs == float(cj.c_lhs) and ct.dt_eff == float(cj.dt_eff)
+    np.testing.assert_allclose(np_(ct.const), np.asarray(cj.const),
+                               rtol=4e-16, atol=0.0)
 
 
 def test_empty_fluid_matches_jax():

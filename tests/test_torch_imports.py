@@ -1,6 +1,7 @@
 """waiwera_tpu_torch imports without JAX: with jax blocked in
 sys.modules, the package and every submodule import, and none of them
-pulls in jax or the JAX package."""
+pulls in jax or the JAX package; h5py is imported only where a file is
+opened."""
 
 import os
 import subprocess
@@ -14,6 +15,7 @@ _SCRIPT = textwrap.dedent(
     import importlib, pkgutil, sys
     preloaded = set(sys.modules)
     sys.modules["jax"] = None
+    sys.modules["waiwera_tpu"] = None
     import torch
     import waiwera_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -22,15 +24,22 @@ _SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     assert torch.get_default_dtype() == torch.float32
     bad = [m for m in set(sys.modules) - preloaded
-           if m == "waiwera_tpu" or m.startswith("waiwera_tpu.")
-           or (m.startswith("jax") and sys.modules[m] is not None)]
+           if m.startswith("waiwera_tpu.")
+           or (m.startswith("jax") and sys.modules[m] is not None)
+           or m == "h5py" or m.startswith("h5py.")]
     assert not bad, bad
-    print(len(names))
+    print(" ".join(names))
     """
 )
 
 
-def test_imports_without_jax():
+# the modules of the model run: the timestepper, output, log and CLI
+NEW_MODULES = ("utils.config", "utils.logging", "sim.output",
+               "sim.timestepper", "cli", "runner", "mesh.rect",
+               "mesh.device")
+
+
+def _imported():
     root = os.path.dirname(os.path.dirname(waiwera_tpu_torch.__file__))
     env = dict(os.environ, PYTHONPATH=root)
     out = subprocess.run(
@@ -38,4 +47,33 @@ def test_imports_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every submodule was imported
+    return out.stdout.split()
+
+
+def test_imports_without_jax():
+    names = _imported()
+    assert len(names) >= 20  # every submodule was imported
+    for mod in NEW_MODULES:
+        assert f"waiwera_tpu_torch.{mod}" in names, mod
+
+
+def test_h5py_is_imported_only_where_a_file_is_opened():
+    """No module imports h5py at import time (checked in the subprocess
+    above for the whole package); sim/output.py and sim/simulation.py
+    import it inside the functions that open a file."""
+    import ast
+
+    pkg = os.path.dirname(waiwera_tpu_torch.__file__)
+    for rel in ("sim/output.py", "sim/simulation.py"):
+        tree = ast.parse(open(os.path.join(pkg, rel)).read())
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = {a.name for n in top if isinstance(n, ast.Import)
+                 for a in n.names} | {n.module for n in top
+                                      if isinstance(n, ast.ImportFrom)}
+        assert "h5py" not in names, rel
+        inner = [n for f in ast.walk(tree)
+                 if isinstance(f, ast.FunctionDef) for n in ast.walk(f)
+                 if isinstance(n, ast.Import)
+                 and any(a.name == "h5py" for a in n.names)]
+        assert inner, rel

@@ -10,8 +10,9 @@ import numpy as np
 
 from chip_smoke import build_sim, flagship_config, flagship_spacing
 
-__all__ = ["flagship_config", "jax_coeffs", "jax_sim", "np_",
-           "torch_coeffs", "torch_sim"]
+__all__ = ["RecordingLogger", "assert_same_records", "flagship_config",
+           "jax_coeffs", "jax_sim", "model_config", "np_", "torch_coeffs",
+           "torch_sim"]
 
 
 def jax_sim(nx=5, ny=4, nz=3, minc=False):
@@ -49,3 +50,53 @@ def np_(a) -> np.ndarray:
     if hasattr(a, "detach"):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def model_config(nx=5, ny=4, nz=3, **sections):
+    """The flagship model as a whole JSON config: flagship_config plus a
+    rectangular mesh section from flagship_spacing (its origin left at
+    0), with `sections` (time, output, ...) replacing top-level keys."""
+    cfg = flagship_config(nx, ny, nz)
+    (dx, dy, dz), _ = flagship_spacing(nx, ny, nz)
+    cfg["mesh"] = {"type": "rectangular", "dx": dx, "dy": dy, "dz": dz}
+    cfg.update(sections)
+    return cfg
+
+
+class RecordingLogger:
+    """A Logger stand-in that keeps (level, source, event, data) of every
+    message, for comparing two runs event by event."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, level, source, event, **data):
+        self.records.append((level, source, event, dict(data)))
+
+    def events(self, source, event):
+        return [d for _, s, e, d in self.records if (s, e) == (source, event)]
+
+
+def assert_same_records(got, want, rtol=1e-12, skip=("elapsed_seconds",),
+                        loose=None):
+    """Two RecordingLoggers hold the same messages in the same order:
+    levels, sources, events and keys equal; values equal, floats to rtol.
+    Keys in `skip` are ignored; `loose` maps a key to (rtol, atol) or, for
+    integers, to the allowed difference."""
+    loose = loose or {}
+    assert [r[:3] for r in got.records] == [r[:3] for r in want.records]
+    for (lv, src, ev, a), (_, _, _, b) in zip(got.records, want.records):
+        assert list(a) == list(b), (src, ev, a, b)
+        for k in a:
+            if k in skip:
+                continue
+            x, y = a[k], b[k]
+            where = f"{src}.{ev}.{k}: {x!r} != {y!r}"
+            if k in loose and isinstance(x, int) and not isinstance(x, bool):
+                assert abs(x - y) <= loose[k], where
+            elif isinstance(x, float) or isinstance(y, float):
+                r, at = loose.get(k, (rtol, 0.0))
+                np.testing.assert_allclose(x, y, rtol=r, atol=at,
+                                           err_msg=where)
+            else:
+                assert x == y, where

@@ -1,11 +1,13 @@
 """waiwera_tpu_torch: the PyTorch/CUDA port of waiwera_tpu.
 
-The implicit timestep of the flagship model (EOS wge with air, IAPWS-97,
-rectilinear mesh, deliverability producer and rate injector, backward
-Euler with an f32 Jacobian and an f32 BiCGStab solve) runs on CPU or on
-one CUDA device. Subpackages mirror the JAX package (thermo, eos,
-physics, mesh, ops, solver, sim) so that each module's counterpart is
-easy to find.
+A JSON model of the flagship's kind (EOS wge with air, IAPWS-97, a
+generated rectilinear or column mesh, deliverability producers and rate
+injectors) runs on CPU or on one CUDA device: the adaptive timestepper
+(backward Euler, BDF2, direct steady state) over an implicit step with
+an f32 or f64 Jacobian and BiCGStab solve, HDF5 output, a YAML log,
+restart and the command line (python -m waiwera_tpu_torch.cli).
+Subpackages mirror the JAX package (thermo, eos, physics, mesh, ops,
+solver, sim, utils) so that each module's counterpart is easy to find.
 
 Importing this package imports torch and numpy only. It changes no
 global dtype or device: every tensor is created with an explicit dtype

@@ -554,12 +554,16 @@ class Bench:
     after each with the whole record."""
 
     def __init__(self, device=None, size=FLAGSHIP, budget_s=None,
-                 emit=None, log=None):
+                 emit=None, log=None, sweep_settle=SETTLE):
+        """sweep_settle: accepted steps each preconditioner of the sweep
+        is held for before its step is timed (the other sections always
+        hold SETTLE); a caller short of time gives fewer."""
         from waiwera_tpu_torch.sim.simulation import resolve_device
 
         self.device = resolve_device(device)
         self.size = tuple(size)
         self.budget_s = budget_s
+        self.sweep_settle = sweep_settle
         self.emit = emit or (lambda result: None)
         self.log = log or (lambda msg: None)
         self.t_start = time.time()
@@ -707,7 +711,8 @@ class Bench:
             def sweep(pc=other):
                 try:
                     t, it, li = time_step(sim_r, make_step(sim_r, pc),
-                                          reps=2, max_seconds=PC_TIME_CAP_S)
+                                          reps=2, settle=self.sweep_settle,
+                                          max_seconds=PC_TIME_CAP_S)
                     entry = {"step_seconds": t, "newton": it,
                              "linear_iterations": li,
                              "operating_point": time_step.last_info}

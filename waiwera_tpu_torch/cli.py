@@ -1,0 +1,178 @@
+"""The command line (counterpart of waiwera_tpu/cli.py and
+waiwera.F90): reads a JSON model file, builds the simulation, runs the
+timestepper, writes HDF5 output and a YAML log.
+
+Usage: python -m waiwera_tpu_torch.cli model.json [--device cpu]
+
+The run takes the CUDA device unless --device names another; without a
+CUDA device and without --device it raises. HDF5 output needs h5py.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _apply_overrides(config: dict, overrides):
+    """Layer `path.to.key=value` command-line overrides onto the JSON
+    config — the analogue of the reference's PETSc option database
+    over JSON (waiwera.F90:75-84, SNES/KSPSetFromOptions). Values are
+    parsed as JSON literals, falling back to strings."""
+    for item in overrides or []:
+        if "=" not in item:
+            raise ValueError(f"--set expects path=value, got {item!r}")
+        path, _, raw = item.partition("=")
+        try:
+            value = json.loads(raw)
+        except json.JSONDecodeError:
+            value = raw
+        keys = path.split(".")
+        d = config
+        for k in keys[:-1]:
+            nxt = d.get(k)
+            if not isinstance(nxt, dict):
+                nxt = {}
+                d[k] = nxt
+            d = nxt
+        d[keys[-1]] = value
+
+
+def _profiled(run, profile_dir: str):
+    """run() under torch.profiler (CPU and, where there is one, CUDA
+    activity), with a Chrome trace written into profile_dir (the
+    reference's -log_view analogue; open it in chrome://tracing or
+    Perfetto)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        run()
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def run_json(filename: str, echo_log: bool = False, device=None,
+             num_devices: int = 0, overrides=None, profile_dir=None):
+    """Load a JSON model file and run it. Returns the Timestepper.
+
+    device: None takes the CUDA device (an error where there is none),
+    "cpu" runs on the CPU. num_devices > 1 (or config["parallel"]
+    ["devices"] > 1 when num_devices is 0) would run domain-decomposed;
+    that is not ported yet. overrides: list of "path.to.key=value"
+    strings layered over the JSON before anything reads it.
+    """
+    base = os.path.dirname(os.path.abspath(filename))
+    with open(filename) as f:
+        config = json.load(f)
+    _apply_overrides(config, overrides)
+
+    cfg_devices = int((config.get("parallel", {}) or {}).get("devices", 1))
+    eff_devices = num_devices if num_devices else cfg_devices
+    if eff_devices > 1:
+        raise NotImplementedError(
+            f"a run over {eff_devices} devices is not ported yet "
+            "(ROADMAP A15)"
+        )
+
+    from waiwera_tpu_torch.sim.output import HDF5Output
+    from waiwera_tpu_torch.sim.simulation import Simulation
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+    from waiwera_tpu_torch.utils.config import TrackedConfig
+    from waiwera_tpu_torch.utils.logging import Logger
+
+    # mesh / restart filenames are relative to the JSON file
+    mesh_cfg = config.get("mesh")
+    if isinstance(mesh_cfg, str):
+        config["mesh"] = os.path.join(base, mesh_cfg)
+    elif isinstance(mesh_cfg, dict) and "filename" in mesh_cfg:
+        mesh_cfg["filename"] = os.path.join(base, mesh_cfg["filename"])
+    ic = config.get("initial")
+    if isinstance(ic, dict) and ic.get("filename"):
+        ic["filename"] = os.path.join(base, ic["filename"])
+
+    ocfg = config.get("output", {}) or {}
+    out_filename = ocfg.get(
+        "filename",
+        os.path.splitext(os.path.basename(filename))[0] + ".h5",
+    )
+    if not os.path.isabs(out_filename):
+        out_filename = os.path.join(os.getcwd(), out_filename)
+
+    lcfg = config.get("logfile", {}) or {}
+    log_filename = None
+    if lcfg.get("filename") or lcfg == {}:
+        log_filename = lcfg.get(
+            "filename",
+            os.path.splitext(out_filename)[0] + ".yaml",
+        )
+
+    # default-value tracking on every config read (fson_mpi.F90:18-56)
+    config = TrackedConfig(config)
+    sim = Simulation(config, device=device)
+    logger = Logger(
+        filename=log_filename, echo=echo_log or bool(lcfg.get("echo"))
+    )
+    try:
+        output = HDF5Output(out_filename, sim)
+        try:
+            ts = Timestepper(config, sim, output=output, logger=logger)
+            config.defaults.log_to(logger)
+            if profile_dir:
+                _profiled(ts.run, profile_dir)
+            else:
+                ts.run()
+        finally:
+            output.close()
+    finally:
+        logger.close()
+    return ts
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="waiwera-torch",
+        description="Geothermal flow simulator on PyTorch and CUDA",
+    )
+    parser.add_argument("filename", help="JSON model input file")
+    parser.add_argument(
+        "-v", "--version", action="version",
+        version="waiwera_tpu_torch 0.1.0",
+    )
+    parser.add_argument(
+        "--echo-log", action="store_true", help="echo log to stdout"
+    )
+    parser.add_argument(
+        "--device", default=None,
+        help="torch device (default: the CUDA device; cpu on request)",
+    )
+    parser.add_argument(
+        "--devices", type=int, default=0,
+        help="run domain-decomposed over N devices (like mpiexec -np N; "
+        "not ported yet)",
+    )
+    parser.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler Chrome trace of the run to "
+        "DIR/trace.json (the -log_view analogue)",
+    )
+    parser.add_argument(
+        "--set", action="append", default=[], metavar="PATH=VALUE",
+        help="override a JSON config entry, e.g. "
+        "--set time.step.size=1e4 (the PETSc command-line option "
+        "layering analogue)",
+    )
+    args = parser.parse_args(argv)
+    ts = run_json(args.filename, echo_log=args.echo_log,
+                  device=args.device, num_devices=args.devices,
+                  overrides=args.set, profile_dir=args.profile)
+    return 0 if not ts.aborted else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,6 +26,8 @@ class EOS:
     default_primary: np.ndarray
     default_region: int = 1
     isothermal: bool = False
+    required_output_fluid_fields: tuple = ()
+    default_output_fluid_fields: tuple = ()
 
     # [max_region, npv] scale factors; set by subclasses
     primary_scale: np.ndarray
@@ -60,6 +62,17 @@ class EOS:
 
     def check_primary_variables(self, primary, region):
         """Bounds check. Returns (primary, err[N])."""
+        raise NotImplementedError
+
+    def primary_from_output_fields(self, fields):
+        """(primary [n, npv], region [n]) as numpy arrays from the
+        required output fluid fields of a restart file
+        (initial.F90:421-679 'minimal' restart)."""
+        raise NotImplementedError
+
+    def primary_variables(self, fluid) -> torch.Tensor:
+        """Primary variables recovered from a fluid state (for
+        restarts)."""
         raise NotImplementedError
 
     # -- misc --------------------------------------------------------

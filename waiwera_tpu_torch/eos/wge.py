@@ -34,6 +34,14 @@ class EOSWaterGasEnergy(EOS):
     )
     default_region = 1
     isothermal = False
+    required_output_fluid_fields = (
+        "pressure",
+        "temperature",
+        "region",
+        "gas_partial_pressure",
+        "vapour_saturation",
+    )
+    default_output_fluid_fields = required_output_fluid_fields
 
     def __init__(self, config, thermo, relperm, capillarity, name="wge"):
         super().__init__(thermo, relperm, capillarity)
@@ -295,3 +303,20 @@ class EOSWaterGasEnergy(EOS):
         )
         out = torch.stack([p, x, pg_new], dim=-1)
         return out, p_bad | pw_bad | x_bad
+
+    def primary_from_output_fields(self, fields):
+        p = np.asarray(fields["pressure"], dtype=np.float64)
+        t = np.asarray(fields["temperature"], dtype=np.float64)
+        sv = np.asarray(fields["vapour_saturation"], dtype=np.float64)
+        pg = np.asarray(fields["gas_partial_pressure"], dtype=np.float64)
+        region = np.asarray(fields["region"], dtype=np.int32)
+        second = np.where(region == 4, sv, t)
+        return np.stack([p, second, pg], axis=-1), region
+
+    def primary_variables(self, fluid: FluidState) -> torch.Tensor:
+        second = torch.where(
+            fluid.region == 4, fluid.saturation[:, 1], fluid.temperature
+        )
+        return torch.stack(
+            [fluid.pressure, second, fluid.partial_pressure[:, 1]], dim=-1
+        )

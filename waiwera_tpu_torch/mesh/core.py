@@ -1,17 +1,20 @@
-"""Finite-volume mesh geometry and connectivity of 3-D hexahedral meshes
-(counterpart of waiwera_tpu/mesh/core.py, numpy geometry path).
+"""Finite-volume mesh geometry and connectivity of quadrilateral (2-D)
+and hexahedral (3-D) meshes (counterpart of waiwera_tpu/mesh/core.py,
+numpy geometry path).
 
 Host-side (NumPy) replacement for the reference's PETSc DMPlex stack:
 - cell/face connectivity by vectorised face dedup (DMPlex cones/supports)
 - FV geometry equivalent to DMPlexComputeGeometryFVM + Waiwera's
-  modifications (mesh.F90:341-580): non-orthogonal distance correction,
-  gravity normals, permeability directions
+  modifications (mesh.F90:341-580): 2-D thickness / radial Pappus
+  corrections, non-orthogonal distance correction, gravity normals,
+  permeability directions
 - Dirichlet boundaries as appended ghost cells with zero volume and
   centroid on the face (mesh.F90:583-667)
 
-Cell order is the input (natural) order. Only hexahedra in 3-D are
-ported (the rectilinear meshes of rect.py); other element types, 2-D
-and radial meshes raise NotImplementedError (ROADMAP A11).
+Cell order is the input (natural) order. Quadrilaterals in 2-D and
+hexahedra in 3-D are ported (the meshes of rect.py); the other element
+types come with the mesh file readers (ROADMAP A16) and raise
+NotImplementedError until then.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ _HEX_FACES = [
     (2, 3, 7, 6),
     (3, 0, 4, 7),
 ]
+# edges of a quadrilateral: the 'faces' of a 2-D mesh
+_QUAD_EDGES = [(0, 1), (1, 2), (2, 3), (3, 0)]
 
 
 @dataclass
@@ -46,6 +51,7 @@ class BoundarySpec:
 
 @dataclass
 class Mesh:
+    dim: int
     num_interior_cells: int
     num_cells: int  # interior + boundary ghost
     cell_centroid: np.ndarray  # [N, 3]
@@ -68,6 +74,8 @@ class Mesh:
     face_gravity_normal: np.ndarray = None  # [F]
     face_permeability_direction: np.ndarray = None  # [F] int (0-based)
     boundaries: List[BoundarySpec] = field(default_factory=list)
+    radial: bool = False
+    thickness: float = 1.0
 
     @property
     def num_faces(self) -> int:
@@ -96,38 +104,56 @@ def _polygon_geometry(verts: np.ndarray):
     return areas, cent / total[:, None]
 
 
-def build_mesh(
-    vertices: np.ndarray,
-    cell_blocks: Sequence[Tuple[str, np.ndarray]],
-    gravity=None,
-) -> Mesh:
-    """Build mesh connectivity and FV geometry from vertices [nv, 3] and
-    hexahedral cells: cell_blocks [("hexahedron", connectivity
-    [nc, 8])], vertex indices 0-based. Cells are numbered block by
-    block in input order (this is the natural order)."""
-    vertices = np.asarray(vertices, dtype=np.float64)
-    kinds = {etype for etype, _ in cell_blocks}
-    if vertices.shape[1] != 3 or kinds != {"hexahedron"}:
-        raise NotImplementedError(
-            f"{vertices.shape[1]}-D meshes of {sorted(kinds)} are not ported "
-            "yet, only 3-D hexahedra (ROADMAP A11)"
-        )
-    g3 = np.array([0.0, 0.0, -9.8])
-    if gravity is not None:
-        g = np.asarray(gravity, dtype=np.float64)
-        g3 = np.zeros(3)
-        g3[: len(g)] = g
+def _pad3(x: np.ndarray) -> np.ndarray:
+    """Pad [n, dim] coordinates to [n, 3]."""
+    if x.shape[1] == 3:
+        return x
+    out = np.zeros((x.shape[0], 3))
+    out[:, : x.shape[1]] = x
+    return out
 
-    conn = np.concatenate(
-        [np.asarray(c, dtype=np.int64) for _, c in cell_blocks]
-    )
-    num_cells = len(conn)
 
-    # ---- cell geometry: tetrahedra (cell mean, face mean, edge) ------
-    pts = vertices[conn]  # [nc, 8, 3]
+def _edge_geometry(verts: np.ndarray):
+    """2-D 'faces' are edges [n, 2, 3]. Returns (area_normal [n, 3], the
+    in-plane normal scaled by the edge length, centroid [n, 3])."""
+    d = verts[:, 1] - verts[:, 0]
+    # normal perpendicular to the edge in the xy-plane
+    n = np.stack([d[:, 1], -d[:, 0], np.zeros(len(d))], axis=1)
+    return n, 0.5 * (verts[:, 0] + verts[:, 1])
+
+
+def _extract_faces(conn: np.ndarray, templates):
+    """All (cell, face) pairs of one element type: (sorted vertex keys
+    [nf_all, k], cell index [nf_all], vertex ids in cyclic order
+    [nf_all, k])."""
+    fverts = np.concatenate([conn[:, list(t)] for t in templates])
+    fcells = np.tile(np.arange(len(conn)), len(templates))
+    return np.sort(fverts, axis=1), fcells, fverts
+
+
+def _cell_geometry_2d(pts: np.ndarray):
+    """Area and centroid of polygons [nc, k, 3] (shoelace over triangles
+    around the vertex mean)."""
+    vmean = pts.mean(axis=1)
+    k = pts.shape[1]
+    area = np.zeros(len(pts))
+    cent = np.zeros((len(pts), 3))
+    for i in range(k):
+        a = pts[:, i] - vmean
+        b = pts[:, (i + 1) % k] - vmean
+        tri = 0.5 * (a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0])
+        tri_c = (pts[:, i] + pts[:, (i + 1) % k] + vmean) / 3.0
+        area += tri
+        cent += tri[:, None] * tri_c
+    return np.abs(area), cent / np.where(area != 0, area, 1.0)[:, None]
+
+
+def _cell_geometry_3d(pts: np.ndarray):
+    """Volume and centroid of hexahedra [nc, 8, 3]: tetrahedra (cell
+    mean, face mean, edge)."""
     vmean = pts.mean(axis=1)  # [nc, 3]
-    vol = np.zeros(num_cells)
-    cent = np.zeros((num_cells, 3))
+    vol = np.zeros(len(pts))
+    cent = np.zeros((len(pts), 3))
     for tmpl in _HEX_FACES:
         fverts = pts[:, list(tmpl)]  # [nc, 4, 3]
         fmean = fverts.mean(axis=1)
@@ -141,13 +167,55 @@ def build_mesh(
             tc = (vmean + fmean + a + b) / 4.0
             vol += tv
             cent += tv[:, None] * tc
-    cell_volume = np.abs(vol)
-    cell_centroid = cent / np.where(vol != 0, vol, 1.0)[:, None]
+    return np.abs(vol), cent / np.where(vol != 0, vol, 1.0)[:, None]
+
+
+def build_mesh(
+    vertices: np.ndarray,
+    cell_blocks: Sequence[Tuple[str, np.ndarray]],
+    gravity=None,
+    radial: bool = False,
+    thickness: float = 1.0,
+) -> Mesh:
+    """Build mesh connectivity and FV geometry from vertices [nv, dim]
+    and cells: cell_blocks [("quad", connectivity [nc, 4])] in 2-D or
+    [("hexahedron", connectivity [nc, 8])] in 3-D, vertex indices
+    0-based. Cells are numbered block by block in input order (this is
+    the natural order). Gravity defaults to 9.8 m/s2 down the last mesh
+    dimension."""
+    vertices = np.asarray(vertices, dtype=np.float64)
+    dim = vertices.shape[1]
+    kinds = {etype for etype, _ in cell_blocks}
+    if (dim, kinds) not in ((2, {"quad"}), (3, {"hexahedron"})):
+        raise NotImplementedError(
+            f"{dim}-D meshes of {sorted(kinds)} are not ported yet, only "
+            "2-D quadrilaterals and 3-D hexahedra (ROADMAP A16)"
+        )
+    g3 = np.zeros(3)
+    if gravity is None:
+        g3[dim - 1] = -9.8
+    else:
+        g = np.asarray(gravity, dtype=np.float64)
+        g3[: len(g)] = g
+
+    conn = np.concatenate(
+        [np.asarray(c, dtype=np.int64) for _, c in cell_blocks]
+    )
+    num_cells = len(conn)
+    v3 = _pad3(vertices)
+
+    # ---- cell geometry -------------------------------------------
+    if dim == 2:
+        cell_volume, cell_centroid = _cell_geometry_2d(v3[conn])
+        face_geom = _edge_geometry
+        templates = _QUAD_EDGES
+    else:
+        cell_volume, cell_centroid = _cell_geometry_3d(v3[conn])
+        face_geom = _polygon_geometry
+        templates = _HEX_FACES
 
     # ---- face extraction + dedup ---------------------------------
-    fverts = np.concatenate([conn[:, list(t)] for t in _HEX_FACES])
-    fcells = np.tile(np.arange(num_cells), len(_HEX_FACES))
-    keys = np.sort(fverts, axis=1)
+    keys, fcells, fverts = _extract_faces(conn, templates)
     order = np.lexsort(keys.T[::-1])
     keys_s = keys[order]
     fcells_s = fcells[order]
@@ -168,15 +236,15 @@ def build_mesh(
     cell_b = np.full(num_unique, -1, dtype=np.int64)
     cell_b[face_id[idx_second]] = fcells_s[idx_second]
     cell_b = cell_b[interior_ids]
-    area_normal, fcentroid = _polygon_geometry(
-        vertices[fverts_s[first_idx[interior_ids]]]
+    area_normal, fcentroid = face_geom(
+        v3[fverts_s[first_idx[interior_ids]]]
     )
 
     # exterior faces: one support
     ext_ids = np.nonzero(counts == 1)[0]
     ext_cell = fcells_s[first_idx[ext_ids]]
-    ext_area_normal, ext_centroid = _polygon_geometry(
-        vertices[fverts_s[first_idx[ext_ids]]]
+    ext_area_normal, ext_centroid = face_geom(
+        v3[fverts_s[first_idx[ext_ids]]]
     )
 
     # orient interior normals from cell_a to cell_b
@@ -191,6 +259,7 @@ def build_mesh(
     area = np.linalg.norm(area_normal, axis=1)
     ext_area = np.linalg.norm(ext_area_normal, axis=1)
     mesh = Mesh(
+        dim=dim,
         num_interior_cells=num_cells,
         num_cells=num_cells,
         cell_centroid=cell_centroid,
@@ -207,7 +276,29 @@ def build_mesh(
             ext_area_normal / np.where(ext_area > 0, ext_area, 1.0)[:, None]
         ),
         exterior_face_area=ext_area,
+        radial=radial,
+        thickness=thickness,
     )
+
+    # 2-D thickness / radial corrections (mesh.F90:341-440)
+    if dim == 2:
+        if radial:
+            two_pi = 2.0 * np.pi
+            mesh.cell_volume = (
+                mesh.cell_volume * two_pi * np.abs(cell_centroid[:, 0])
+            )
+            mesh.face_area = (
+                mesh.face_area * two_pi * np.abs(mesh.face_centroid[:, 0])
+            )
+            mesh.exterior_face_area = (
+                mesh.exterior_face_area * two_pi
+                * np.abs(mesh.exterior_face_centroid[:, 0])
+            )
+        else:
+            mesh.cell_volume = mesh.cell_volume * thickness
+            mesh.face_area = mesh.face_area * thickness
+            mesh.exterior_face_area = mesh.exterior_face_area * thickness
+
     _finish_face_geometry(mesh)
     return mesh
 
@@ -236,9 +327,9 @@ def _finish_face_geometry(mesh: Mesh):
     mesh.face_distance = np.stack([d1 * corr, d2 * corr], axis=1)
     mesh.face_distance12 = d12
     mesh.face_gravity_normal = n @ mesh.gravity
-    mesh.face_permeability_direction = np.argmax(np.abs(n), axis=1).astype(
-        np.int32
-    )
+    mesh.face_permeability_direction = np.argmax(
+        np.abs(n[:, : mesh.dim]), axis=1
+    ).astype(np.int32)
 
 
 def add_boundaries(mesh: Mesh, boundary_specs: List[dict], npv: int):
@@ -261,10 +352,6 @@ def add_boundaries(mesh: Mesh, boundary_specs: List[dict], npv: int):
     specs_out = []
 
     for spec in boundary_specs:
-        if spec.get("tracer") is not None:
-            raise NotImplementedError(
-                "boundary tracer values are not ported yet (ROADMAP A13)"
-            )
         faces_spec = spec.get("faces", {})
         face_groups = faces_spec if isinstance(faces_spec, list) else [
             faces_spec
@@ -273,7 +360,9 @@ def add_boundaries(mesh: Mesh, boundary_specs: List[dict], npv: int):
         for fg in face_groups:
             cells = np.atleast_1d(np.asarray(fg.get("cells", []), np.int64))
             n3 = np.zeros(3)
-            normal_spec = np.asarray(fg.get("normal", [0.0] * 3), float)
+            normal_spec = np.asarray(
+                fg.get("normal", [0.0] * mesh.dim), float
+            )
             n3[: len(normal_spec)] = normal_spec
             nrm = np.linalg.norm(n3)
             if nrm > 0:
@@ -305,6 +394,10 @@ def add_boundaries(mesh: Mesh, boundary_specs: List[dict], npv: int):
                                 dtype=np.int64),
             )
         )
+        if spec.get("tracer") is not None:
+            raise NotImplementedError(
+                "boundary tracer values are not ported yet (ROADMAP A13)"
+            )
 
     n_new = ghost_index - mesh.num_cells
     if n_new == 0:
@@ -340,6 +433,8 @@ def add_boundaries(mesh: Mesh, boundary_specs: List[dict], npv: int):
     )
     mesh.face_permeability_direction = np.concatenate([
         mesh.face_permeability_direction,
-        np.argmax(np.abs(add_normal), axis=1).astype(np.int32),
+        np.argmax(np.abs(add_normal[:, : mesh.dim]), axis=1).astype(
+            np.int32
+        ),
     ])
     mesh.boundaries.extend(specs_out)

@@ -4,12 +4,14 @@ Faces are stored in the JAX package's *canonical* order, so that the
 fluxes of the two packages compare face by face: every face is oriented
 so that cell_l < cell_r (swapping the per-side distances and negating
 the signed gravity normal leaves the flux kernel invariant), then the
-faces are sorted by (column offset, row).
+faces are sorted by (column offset, row). `face_perm` and `face_sign`
+map canonical faces back to the host mesh's order and orientation for
+the flux output (fluxes_to_host_order).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,6 +30,10 @@ class MeshArrays(NamedTuple):
     is_ghost: torch.Tensor  # [N] bool
     num_cells: int
     num_interior_cells: int
+    # canonical -> host face mapping (host numpy):
+    # host_flux[face_perm[f]] = face_sign[f] * device_flux[f]
+    face_perm: Optional[np.ndarray] = None
+    face_sign: Optional[np.ndarray] = None
 
     def to(self, dtype: torch.dtype) -> "MeshArrays":
         """The same mesh with its floating geometry cast to dtype."""
@@ -70,4 +76,20 @@ def mesh_arrays(mesh: Mesh, device="cpu") -> MeshArrays:
                                  device=device),
         num_cells=mesh.num_cells,
         num_interior_cells=mesh.num_interior_cells,
+        face_perm=perm,
+        face_sign=np.where(flip, -1.0, 1.0)[perm],
     )
+
+
+def fluxes_to_host_order(mesh: MeshArrays, fluxes) -> np.ndarray:
+    """Canonical-order face values [F, k] (tensor or array) in the host
+    mesh's face order and orientation (for /face_fields output). A
+    tensor crosses to the host once."""
+    if isinstance(fluxes, torch.Tensor):
+        fluxes = fluxes.detach().cpu().numpy()
+    a = np.asarray(fluxes)
+    if mesh.face_perm is None:
+        return a
+    out = np.empty_like(a)
+    out[mesh.face_perm] = a * mesh.face_sign[(...,) + (None,) * (a.ndim - 1)]
+    return out

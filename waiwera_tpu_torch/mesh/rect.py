@@ -1,5 +1,5 @@
-"""Structured rectilinear mesh generator, 3-D hexahedra (counterpart of
-waiwera_tpu/mesh/rect.py, rectangular_mesh).
+"""Structured rectilinear mesh generators: hexahedral 3-D, quadrilateral
+2-D and 1-D columns (counterpart of waiwera_tpu/mesh/rect.py).
 
 Cells are numbered x-fastest, then y, then z (natural order).
 """
@@ -24,18 +24,43 @@ def rectangular_mesh(
     dz: Optional[Sequence[float]] = None,
     origin=None,
     gravity=None,
+    radial: bool = False,
+    thickness: float = 1.0,
 ) -> Mesh:
-    """3-D hexahedral mesh from per-axis cell widths (1-D and 2-D meshes
-    are not ported yet: ROADMAP A11)."""
-    if dy is None or dz is None:
-        raise NotImplementedError(
-            "1-D and 2-D rectangular meshes are not ported yet (ROADMAP A11)"
-        )
-    x, y, z = _edges(dx), _edges(dy), _edges(dz)
+    """Rectilinear mesh from per-axis cell widths.
+
+    - dx only: 1-D horizontal row modelled as 2-D quads of unit height.
+    - dx + dy: 2-D quad mesh in (x, y), optionally radial (x is r) or
+      with a thickness.
+    - dx + dy + dz: 3-D hexahedral mesh.
+    """
+    if dy is None and dz is None:
+        dy = [1.0]
+    x, y = _edges(dx), _edges(dy)
     if origin is not None:
         origin = np.asarray(origin, dtype=np.float64)
-        x, y, z = x + origin[0], y + origin[1], z + origin[2]
-    nx, ny, nz = len(x) - 1, len(y) - 1, len(z) - 1
+        x, y = x + origin[0], y + origin[1]
+    nx, ny = len(x) - 1, len(y) - 1
+    if dz is None:
+        X, Y = np.meshgrid(x, y, indexing="xy")
+        verts = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+        def vid2(i, j):
+            return j * (nx + 1) + i
+
+        j, i = (a.ravel() for a in np.meshgrid(
+            np.arange(ny), np.arange(nx), indexing="ij"))
+        conn = np.stack(
+            [vid2(i, j), vid2(i + 1, j), vid2(i + 1, j + 1), vid2(i, j + 1)],
+            axis=1,
+        ).astype(np.int64)
+        return build_mesh(verts, [("quad", conn)], gravity=gravity,
+                          radial=radial, thickness=thickness)
+
+    z = _edges(dz)
+    if origin is not None:
+        z = z + origin[2]
+    nz = len(z) - 1
     nvx, nvy, nvz = nx + 1, ny + 1, nz + 1
     verts = np.empty((nvx * nvy * nvz, 3))
 
@@ -69,3 +94,32 @@ def rectangular_mesh(
         axis=1,
     ).astype(np.int64)
     return build_mesh(verts, [("hexahedron", conn)], gravity=gravity)
+
+
+def column_mesh(
+    dz: Sequence[float],
+    area: float = 1.0,
+    gravity=None,
+    top: float = 0.0,
+) -> Mesh:
+    """1-D vertical column of quad cells (a 2-D mesh of width sqrt(area)
+    and thickness sqrt(area)): cell 0 at the top, depth increasing with
+    the cell index.
+
+    Gravity defaults to (0, -9.8) in the 2-D plane, so the column's y
+    axis is depth.
+    """
+    dz = np.asarray(dz, dtype=np.float64)
+    w = float(np.sqrt(area))
+    n = len(dz)
+    zedges = top - np.concatenate([[0.0], np.cumsum(dz)])
+    verts = np.empty((2 * (n + 1), 2))
+    verts[0::2, 0] = 0.0
+    verts[1::2, 0] = w
+    verts[0::2, 1] = zedges
+    verts[1::2, 1] = zedges
+    v0 = 2 * np.arange(n)
+    conn = np.stack([v0, v0 + 1, v0 + 3, v0 + 2], axis=1).astype(np.int64)
+    if gravity is None:
+        gravity = [0.0, -9.8]
+    return build_mesh(verts, [("quad", conn)], gravity=gravity, thickness=w)

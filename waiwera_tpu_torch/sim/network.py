@@ -38,10 +38,15 @@ DEFAULT_INJECTION_ENTHALPY = 83.9e3
 
 # source keys of the ported subset; any other key raises
 _SOURCE_KEYS = {
-    "name", "cell", "cells", "component", "direction", "rate", "enthalpy",
+    "name", "cell", "cells", "zones", "component", "direction", "rate", "enthalpy",
     "deliverability", "interpolation", "averaging",
 }
-_DELIVERABILITY_KEYS = {"productivity", "pressure"}
+_DELIVERABILITY_KEYS = {"productivity", "pressure", "threshold"}
+# keys of controls that are not ported (ROADMAP A13): a source that has
+# one is refused with the other unknown keys; they are still read, in the
+# JAX package's order, so that a tracked config logs the same defaults
+_UNPORTED_SOURCE_KEYS = ("injectivity", "recharge", "separator", "limiter",
+                         "tracer")
 
 
 def _direction_from_str(s) -> int:
@@ -84,7 +89,7 @@ class SourceNetwork:
     `flows(fluid, t0, t1)` (source_setup.F90 + source_network.F90)."""
 
     def __init__(self, specs: List[dict], network_cfg: dict, mesh, eos,
-                 thermo, device="cpu"):
+                 thermo, device="cpu", zones=None):
         if network_cfg:
             raise NotImplementedError(
                 "source network groups and reinjectors are not ported yet "
@@ -104,11 +109,24 @@ class SourceNetwork:
                 )
             cells = (
                 [int(spec["cell"])]
-                if spec.get("cell") is not None
+                if "cell" in spec and spec["cell"] is not None
                 else [int(c) for c in np.atleast_1d(spec.get("cells") or [])]
             )
+            # zone-based placement (source_setup.F90:250-345): a source
+            # in each cell of every listed zone, besides any cells
+            znames = spec.get("zones", []) or []
+            if isinstance(znames, str):
+                znames = [znames]
+            for zn in znames:
+                if not zones or zn not in zones:
+                    raise ValueError(f"source {i}: unknown zone {zn!r}")
+                cells.extend(int(c) for c in np.asarray(zones[zn]))
             if not cells:
                 raise ValueError(f"source {i}: no cell given")
+            # table options: read as the reference reads them; they act
+            # on rate tables only, which are not ported
+            spec.get("interpolation", "linear")
+            spec.get("averaging", "integrate")
             for c in cells:
                 s = _SourceSpec(name=spec.get("name", f"source {i}"), cell=c)
                 self._parse_source(s, spec)
@@ -151,9 +169,9 @@ class SourceNetwork:
         s.prod_component = comp
         if "direction" in spec:
             s.direction = _direction_from_str(spec["direction"])
-        if spec.get("rate") is not None:
+        if "rate" in spec and spec["rate"] is not None:
             s.base_rate = _scalar(spec["rate"], "rate")
-        if spec.get("enthalpy") is not None:
+        if "enthalpy" in spec and spec["enthalpy"] is not None:
             s.base_enthalpy = _scalar(spec["enthalpy"], "enthalpy")
         deliv = spec.get("deliverability")
         if deliv is not None:
@@ -166,17 +184,21 @@ class SourceNetwork:
                     f"deliverability keys {sorted(extra)} are not ported "
                     "yet (ROADMAP A13)"
                 )
+            # read as the JAX package reads it; it acts nowhere there
+            float(deliv.get("threshold", -1.0))
+            pref = deliv.get("pressure")
+            if isinstance(pref, str):
+                s.deliv_pref_initial = True
+            elif pref is not None:
+                s.deliv_pref = _scalar(pref, "reference pressure")
             prod = deliv.get("productivity")
             if prod is None:
                 # PI from the initial rate (source_control.F90:408-470)
                 s.deliv_pi_from_rate = True
             else:
                 s.deliv_pi = _scalar(prod, "productivity")
-            pref = deliv.get("pressure")
-            if isinstance(pref, str):
-                s.deliv_pref_initial = True
-            elif pref is not None:
-                s.deliv_pref = _scalar(pref, "reference pressure")
+        for key in _UNPORTED_SOURCE_KEYS:
+            spec.get(key)
 
     def _set_deliverability_tables(self):
         self._deliv_pi = np.asarray([
@@ -211,14 +233,18 @@ class SourceNetwork:
 
     # -- the pure update ----------------------------------------------
 
-    def flows(self, fluid, t0, t1):
+    def flows(self, fluid, t0, t1, collect=None):
         """Returns (rate [ns], enthalpy [ns]): signed source rates and
-        effective (injection or flowing) enthalpies."""
+        effective (injection or flowing) enthalpies. A dict passed as
+        `collect` receives the separated water and steam flows for
+        output (zero without separators)."""
         return self.flows_from_state(
-            gather_cell_state(fluid, self.arrays.cell), t0, t1
+            gather_cell_state(fluid, self.arrays.cell), t0, t1,
+            collect=collect,
         )
 
-    def flows_from_state(self, state: SourceCellState, t0, t1):
+    def flows_from_state(self, state: SourceCellState, t0, t1,
+                         collect=None):
         """The network update on the gathered per-source state
         (non-network branch: no separators, limiters or groups)."""
         P = state.pressure
@@ -245,4 +271,7 @@ class SourceNetwork:
         q = torch.where((direction == DIR_INJECTION) & (q < 0.0), 0.0, q)
 
         h_eff = torch.where(q >= 0.0, h_inj, h_flow)
+        if collect is not None:
+            z = torch.zeros_like(q)
+            collect["separated"] = (z, z, z, z)
         return q, h_eff

@@ -1,16 +1,19 @@
 """Flow simulation: couples mesh, EOS, rocks, sources and boundary
 conditions into a one-timestep-try function (counterpart of
-waiwera_tpu/sim/simulation.py, for the configurations of bench.py).
+waiwera_tpu/sim/simulation.py).
 
 Ported subset of the JSON schema (doc/user/setup_*.rst): thermodynamics
 "iapws"; eos "wge"/"wae" with air; default (fully mobile) relative
 permeability and zero capillarity; mesh zones (cell arrays, boxes,
 combinations) and MINC; rock types with scalar properties assigned to
 listed cells, to zones or to all cells, and MINC fracture/matrix rock
-types; constant or per-cell initial primaries and regions; Dirichlet
-boundaries; the sources of sim/network.py. The mesh is passed in.
+types; constant or per-cell initial primaries and regions, or a restart
+from an HDF5 output file; Dirichlet boundaries; the sources of
+sim/network.py. The mesh is passed in or generated from the config
+("type": "rectangular" or "column"; mesh files wait for ROADMAP A16).
 Anything else raises NotImplementedError naming the ROADMAP item that
-will port it.
+will port it. The config is read in the JAX package's order, so that a
+tracked config (utils/config.py) logs the same defaults.
 
 The simulation runs on the CUDA device unless the caller names another
 device; without a CUDA device, Simulation(...) with no device raises.
@@ -26,7 +29,7 @@ import torch
 from waiwera_tpu_torch import eos as eos_mod
 from waiwera_tpu_torch import thermo as thermo_mod
 from waiwera_tpu_torch.mesh.core import Mesh, add_boundaries, set_gravity
-from waiwera_tpu_torch.mesh.device import mesh_arrays
+from waiwera_tpu_torch.mesh.device import fluxes_to_host_order, mesh_arrays
 from waiwera_tpu_torch.mesh.minc import apply_minc, parse_minc
 from waiwera_tpu_torch.physics import capillarity as cp_mod
 from waiwera_tpu_torch.physics import relperm as relperm_mod
@@ -45,7 +48,7 @@ from waiwera_tpu_torch.solver.system import System, method_coeffs
 
 _ROCK_TYPE_KEYS = {
     "name", "cells", "zones", "permeability", "porosity", "wet_conductivity",
-    "dry_conductivity", "density", "specific_heat",
+    "dry_conductivity", "density", "specific_heat", "interpolation",
 }
 
 
@@ -72,11 +75,7 @@ class Simulation:
                  device=None):
         self.config = config
         self.device = resolve_device(device)
-        if mesh is None:
-            raise _not_ported("building the mesh from the config", "A11")
-        for key, item in (("tracer", "A13"), ("network", "A13")):
-            if config.get(key):
-                raise _not_ported(f"config section {key!r}", item)
+        self.title = config.get("title", "")
 
         thermo_name = config.get("thermodynamics", "iapws")
         if isinstance(thermo_name, dict):
@@ -95,11 +94,16 @@ class Simulation:
         )
         npv = self.eos.num_primary_variables
 
+        mesh_given = mesh is not None
+        if mesh is None:
+            mesh = self._mesh_from_config(config)
         self.mesh = mesh
-        # an explicitly passed mesh keeps its gravity unless the config
-        # sets one (flow_simulation.F90:782-847)
-        if "gravity" in config:
-            set_gravity(mesh, self._resolve_gravity(config))
+        # gravity (flow_simulation.F90:782-847): a scalar g is -g in the
+        # last mesh dimension; missing or null is 0 for 2-D meshes and
+        # (0, 0, -9.8) for 3-D. An explicitly passed mesh keeps its
+        # gravity unless the config sets one.
+        if (not mesh_given) or ("gravity" in config):
+            set_gravity(mesh, self._resolve_gravity(config, mesh.dim))
         self.zones = self._setup_zones(config, mesh)
         # MINC appends matrix cells; it must precede the boundaries
         mesh_cfg = config.get("mesh")
@@ -111,13 +115,19 @@ class Simulation:
         add_boundaries(mesh, config.get("boundaries", []) or [], npv)
         self.mesh_dev = mesh_arrays(mesh, self.device)
         self.rock = self._setup_rock(rock_cfg, mesh)
+        self.rock_controls = []  # rock property tables: ROADMAP A13
+
+        if config.get("tracer"):
+            raise _not_ported("config section 'tracer'", "A13")
+        self.tracers = None
 
         src_cfg = config.get("source", []) or []
         if isinstance(src_cfg, dict):
             src_cfg = [src_cfg]
         self.sources = (
-            SourceNetwork(src_cfg, {}, mesh, self.eos, self.thermo,
-                          device=self.device)
+            SourceNetwork(src_cfg, config.get("network", {}) or {}, mesh,
+                          self.eos, self.thermo, device=self.device,
+                          zones=self.zones)
             if src_cfg
             else None
         )
@@ -130,15 +140,46 @@ class Simulation:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _resolve_gravity(config):
-        """Gravity vector of a 3-D mesh: default 9.8 m/s2 down z, a
-        scalar magnitude down z, or a vector."""
+    def _mesh_from_config(config) -> Mesh:
+        """The mesh generated from config["mesh"]: "type": "column"
+        (dz, area) or "rectangular" (dx, dy, dz, radial, thickness).
+        Gravity is set by the caller, once the dimension is known."""
+        mesh_cfg = config.get("mesh")
+        if mesh_cfg is None:
+            raise ValueError("no mesh specified")
+        if isinstance(mesh_cfg, str):
+            mesh_cfg = {"filename": mesh_cfg}
+        radial = bool(mesh_cfg.get("radial", False))
+        thickness = float(mesh_cfg.get("thickness", 1.0))
+        if "filename" in mesh_cfg:
+            raise _not_ported(
+                f"reading the mesh file {mesh_cfg['filename']!r} (gmsh and "
+                "exodus readers)", "A16")
+        if mesh_cfg.get("type") == "column":
+            from waiwera_tpu_torch.mesh.rect import column_mesh
+
+            return column_mesh(mesh_cfg["dz"],
+                               area=mesh_cfg.get("area", 1.0))
+        if mesh_cfg.get("type") == "rectangular":
+            from waiwera_tpu_torch.mesh.rect import rectangular_mesh
+
+            return rectangular_mesh(
+                mesh_cfg.get("dx"), mesh_cfg.get("dy"), mesh_cfg.get("dz"),
+                radial=radial, thickness=thickness,
+            )
+        raise ValueError(f"cannot build mesh from: {mesh_cfg!r}")
+
+    @staticmethod
+    def _resolve_gravity(config, dim: int):
+        """Gravity vector: a vector as given; a scalar magnitude, or the
+        default (9.8 m/s2 in 3-D, 0 in 2-D), down the last mesh
+        dimension."""
         g = config.get("gravity", None)
         out = np.zeros(3)
         if g is None:
-            out[2] = -9.8
+            out[dim - 1] = -(0.0 if dim == 2 else 9.8)
         elif isinstance(g, (int, float)):
-            out[2] = -float(g)
+            out[dim - 1] = -float(g)
         else:
             arr = np.asarray(g, dtype=np.float64)
             out[: len(arr)] = arr
@@ -186,7 +227,7 @@ class Simulation:
                     cells = np.flatnonzero(sel)
                 else:  # box
                     sel = np.ones(n, bool)
-                    for k, ax in enumerate("xyz"):
+                    for k, ax in enumerate("xyz"[: mesh.dim]):
                         if spec.get(ax) is not None:
                             lo, hi = spec[ax]
                             sel &= (centroid[:, k] >= lo) & (
@@ -228,15 +269,21 @@ class Simulation:
                 cells = np.asarray(rt["cells"], dtype=np.int64)
             else:
                 cells = np.arange(mesh.num_interior_cells)
+            # interpolation of property tables, read where the JAX
+            # package reads it
+            rt.get("interpolation", "linear")
             k_spec = rt.get("permeability", DEFAULT_PERMEABILITY)
-            p_spec = rt.get("porosity", DEFAULT_POROSITY)
-            if np.ndim(k_spec) > 1 or np.ndim(p_spec) > 0:
+            if np.ndim(k_spec) > 1:
                 raise _not_ported("rock property tables (rock controls)",
                                   "A13")
             k = np.atleast_1d(np.asarray(k_spec, dtype=np.float64))
             if len(k) < 3:
                 k = np.concatenate([k, np.full(3 - len(k), k[-1])])
             perm[cells] = k
+            p_spec = rt.get("porosity", DEFAULT_POROSITY)
+            if np.ndim(p_spec) > 0:
+                raise _not_ported("rock property tables (rock controls)",
+                                  "A13")
             poro[cells] = p_spec
             wetk[cells] = rt.get("wet_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
             dryk[cells] = rt.get("dry_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
@@ -276,13 +323,16 @@ class Simulation:
 
     def _setup_initial(self, config, mesh: Mesh):
         """Initial scaled primaries and regions (initial.F90: constant
-        or per-cell arrays) with boundary values in the ghost rows."""
+        or per-cell arrays, or a restart from an HDF5 output file) with
+        boundary values in the ghost rows."""
         n = mesh.num_cells
         ic = config.get("initial", {}) or {}
-        if ic.get("filename"):
-            raise _not_ported("restart from an output file", "A11")
         primary = np.tile(self.eos.default_primary, (n, 1))
         region = np.full(n, self.eos.default_region, dtype=np.int32)
+        if "filename" in ic and ic["filename"]:
+            p, r = self._initial_from_file(ic)
+            primary[: len(p)] = p
+            region[: len(r)] = r
         if "primary" in ic:
             p = np.asarray(ic["primary"], dtype=np.float64)
             if p.ndim == 1:
@@ -308,6 +358,27 @@ class Simulation:
             region[b.cells] = b.region
         region_t = torch.as_tensor(region, device=self.device)
         return self.eos.scale(self._f64(primary), region_t), region_t
+
+    def _initial_from_file(self, ic):
+        """Restart from an HDF5 output file (initial.F90:421-679): the
+        EOS's required output fluid fields at the given time index
+        (default -1, the last), put into natural cell order through the
+        file's cell_index. The fluid state is a pure function of
+        (primary, region), so this 'minimal' restart continues the run
+        exactly. Needs h5py."""
+        import h5py
+
+        index = ic.get("index", -1)
+        index = -1 if index is None else int(index)
+        with h5py.File(ic["filename"], "r") as f:
+            cf = f["cell_fields"]
+            order = np.asarray(f["cell_index"][:, 0], np.int64)
+            inv = np.argsort(order)
+            fields = {}
+            for name in self.eos.required_output_fluid_fields:
+                ds = f"fluid_{name}" if f"fluid_{name}" in cf else name
+                fields[name] = np.asarray(cf[ds][index])[inv]
+        return self.eos.primary_from_output_fields(fields)
 
     # ------------------------------------------------------------------
 
@@ -338,8 +409,9 @@ class Simulation:
             rock = self.rock if rock_in is None else rock_in
             t0 = float(t_last)
             t1 = t0 + float(dt)
-            # lhs_last2, dt_last and first enter BDF2 only (ROADMAP A11)
-            coeffs = method_coeffs(method, dt, lhs_last)
+            coeffs = method_coeffs(
+                method, dt, dt_last, first, lhs_last, lhs_last2
+            )
             initial = None
             if rock_in is None and fluid_last is not None \
                     and fluxes_last is not None:
@@ -363,6 +435,36 @@ class Simulation:
         carried-state path of the step function."""
         fluid, cond, _ = self.system.derived_state(y, region, self.rock)
         return self.system.fluxes(fluid, cond, self.rock)
+
+
+    def fluxes_at(self, y, region) -> np.ndarray:
+        """[F, nflux] face fluxes at a state, on the host in the host
+        mesh's face order (for the initial flux output)."""
+        return self.flux_to_global(self.initial_fluxes(y, region))
+
+    def flux_to_global(self, fluxes) -> np.ndarray:
+        """Canonical (band-sorted) face order -> the host mesh's face
+        order and orientation, for /face_fields output."""
+        return fluxes_to_host_order(self.mesh_dev, fluxes)
+
+    def dof_statistics(self) -> dict:
+        """DOF totals and per-device imbalance (Kumar et al. 1994,
+        flow_simulation.F90:2998-3019). One device: no imbalance."""
+        dof = (int(self.mesh.num_interior_cells)
+               * self.eos.num_primary_variables)
+        return {"total": dof, "min": dof, "max": dof, "imbalance": 0.0}
+
+
+def timestepper_state_from_numpy(y, region, device="cpu"):
+    """The state a Timestepper starts from, (y [N, npv] f64, region [N]
+    int32) on `device`, from numpy arrays (e.g. the JAX package's
+    final_y and final_region): assign it to a simulation's y0 and
+    region0. Everything else the run carries (balances, fluid, fluxes)
+    is recomputed from these."""
+    return (
+        torch.as_tensor(np.array(y, np.float64), device=device),
+        torch.as_tensor(np.array(region, np.int32), device=device),
+    )
 
 
 def state_from_numpy(y, region, temperature, lhs, fluid, fluxes,

@@ -109,15 +109,26 @@ def bicgstab(
     )
 
 
-def solve(method: str, matvec, b, precond=None, rtol: float = DEFAULT_RTOL,
-          max_iterations: int = 1000) -> KrylovResult:
-    """KSP-style dispatch by the reference's JSON linear-solver names
-    (timestepper.F90:1725-1739). Only BiCGStab is ported."""
-    if method in ("bcgs", "bicgstab"):
-        return bicgstab(matvec, b, precond=precond, rtol=rtol,
-                        max_iterations=max_iterations)
-    if method in ("gmres", "lgmres", "bcgsl", "bicgstabl"):
+_BICGSTAB = ("bcgs", "bicgstab")
+_NOT_PORTED = ("gmres", "lgmres", "bcgsl", "bicgstabl")
+
+
+def require_ported(method: str) -> None:
+    """Raise unless `method`, one of the reference's JSON linear-solver
+    names (timestepper.F90:1725-1739), is ported: only BiCGStab is."""
+    if method in _BICGSTAB:
+        return
+    if method in _NOT_PORTED:
         raise NotImplementedError(
             f"linear solver {method!r} is not ported yet (ROADMAP A14)"
         )
     raise ValueError(f"unknown linear solver: {method!r}")
+
+
+def solve(method: str, matvec, b, precond=None, rtol: float = DEFAULT_RTOL,
+          max_iterations: int = 1000) -> KrylovResult:
+    """KSP-style dispatch by the reference's JSON linear-solver names.
+    Only BiCGStab is ported."""
+    require_ported(method)
+    return bicgstab(matvec, b, precond=precond, rtol=rtol,
+                    max_iterations=max_iterations)

@@ -38,6 +38,7 @@ class NewtonParams(NamedTuple):
     linear_pc: str = "bjacobi"
     linear_rtol: float = 1e-5
     linear_max_iterations: int = 1000
+    linear_restart: int = 30  # gmres/lgmres subspace size (ROADMAP A14)
     # precision of the inner Krylov solve and of the Jacobian tangent
     # chain; the residual and the convergence tests stay f64
     linear_dtype: str = "float64"

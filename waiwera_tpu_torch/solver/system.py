@@ -1,9 +1,12 @@
 """The nonlinear system: residual and AD block Jacobian (counterpart of
 waiwera_tpu/solver/system.py).
 
-Residual (timestepper.F90:345-452), backward Euler:
-    r = c_L * L(y) + const - dt_eff * R(y),  c_L = 1, dt_eff = dt,
-    const = -L_old.
+Residual (timestepper.F90:345-452), generalised over methods:
+    r = c_L * L(y) + const - dt_eff * R(y)
+with backward Euler: c_L = 1, dt_eff = dt, const = -L_old;
+BDF2:  c_L = 1+2r, dt_eff = dt (r+1),
+       const = -(r+1)^2 L_old + r^2 L_old2  (r = dt / dt_old);
+direct steady state: c_L = 0, dt_eff = -1, const = 0.
 
 The block Jacobian is exact forward-mode AD: because balances and
 sources are cell-local and fluxes are face-local in the gathered pair
@@ -40,15 +43,27 @@ class MethodCoeffs(NamedTuple):
     const: torch.Tensor  # [N, npv]
 
 
-def method_coeffs(method: str, dt, lhs_last) -> MethodCoeffs:
-    """Residual coefficients of the time integration method
-    (timestepper.F90:345-452). Only backward Euler is ported."""
-    if method != "beuler":
-        raise NotImplementedError(
-            f"time integration method {method!r} is not ported yet "
-            "(ROADMAP A11)"
+def method_coeffs(
+    method: str, dt, dt_last, first, lhs_last, lhs_last2
+) -> MethodCoeffs:
+    """Residual coefficients of the time integration methods
+    (timestepper.F90:345-452): backward Euler, variable-step BDF2
+    (backward Euler on the run's first step, `first` > 0.5) and direct
+    steady state. dt, dt_last and first are Python numbers (or 0-d
+    tensors, read on the host); the arithmetic is f64 in the JAX
+    package's order."""
+    if method == "directss":
+        return MethodCoeffs(c_lhs=0.0, dt_eff=-1.0,
+                            const=torch.zeros_like(lhs_last))
+    dt = float(dt)
+    if method == "bdf2" and not float(first) > 0.5:
+        r = dt / float(dt_last)
+        return MethodCoeffs(
+            c_lhs=1.0 + 2.0 * r,
+            dt_eff=dt * (r + 1.0),
+            const=-((r + 1.0) * (r + 1.0)) * lhs_last + (r * r) * lhs_last2,
         )
-    return MethodCoeffs(c_lhs=1.0, dt_eff=float(dt), const=-lhs_last)
+    return MethodCoeffs(c_lhs=1.0, dt_eff=dt, const=-lhs_last)
 
 
 class System:
