@@ -49,13 +49,33 @@ Phases (any failure raises and the exit code is nonzero):
    Then the same JSON at 48 x 32 x 32 with BDF2 for 3 steps (checkpoint
    at 1e4 s), and the 5 x 4 x 3 box for 2 steps through the Timestepper
    on the card and on the CPU: the same tries and sizes, y within rtol
-   2e-5, atol 2e-5.
+   2e-5, atol 2e-5;
+8. the EOS models (eos_model_config: the flagship box and rock, Corey
+   relative permeability, van Genuchten capillarity, a per-cell initial
+   state, a top boundary holding the top layer's state, a deliverability
+   producer near the top and a 20 kg/s injector low down), each written
+   as a JSON file and run with no device named, the kernel counts set to
+   0 just before each run and read just after: (a) the default EOS "we"
+   (no eos and no thermodynamics section) at 128 x 64 x 64 with a
+   two-phase top zone, the schema's default solver (f64 Jacobian, f64
+   BiCGStab, block-Jacobi), 4 adaptive steps; (b) "wse" on IFC-67 at
+   48 x 32 x 32 with a halite zone and the power-law permeability
+   modifier, the bench's f32 solver, 3 steps; (c) "wsce" (b = 4) and the
+   isothermal "w" (b = 1) at 48 x 32 x 32, default solver, 3 steps each.
+   Checks: not aborted, the steps taken, a finite final state, launches
+   of the kernel of the run's linear dtype = Krylov matvecs > 0, and in
+   (a) a final state of 532,480 x 2 and at least one cell whose region
+   changed. Each run's System.jacobian_parts is timed at its final
+   state. (d) the 5 x 4 x 3 "we" model on the card and on the CPU: the
+   same tries and sizes (rtol 1e-12), regions equal, y within rtol 2e-5,
+   atol 2e-5.
 
 Prints each bench section's wall time on its own line, then the model
-run's times and counts, the bench's full JSON record, one JSON line
-{"kernels": [...]} and the card's nvidia-smi name and power limit; the
-last line is {"ok": true, "device": {...}}. Exits nonzero without a CUDA
-device.
+runs' times and counts, the bench's full JSON record, one JSON line
+{"kernels": [...]} (launches on the bench path, on the phase 7 model run
+and over phase 8's card runs) and the card's nvidia-smi name and power
+limit; the last line is {"ok": true, "device": {...}}. Exits nonzero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -80,8 +100,9 @@ from waiwera_tpu_torch.bench import (  # noqa: E402
     make_step,
 )
 
-__all__ = ["build_sim", "flagship_config", "flagship_spacing", "make_step",
-           "model_config", "model_run", "run_steps"]
+__all__ = ["build_sim", "eos_model_config", "flagship_config",
+           "flagship_spacing", "make_step", "model_config", "model_run",
+           "run_steps"]
 
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FLAGSHIP = (128, 64, 64)
@@ -302,6 +323,128 @@ def model_config(nx, ny, nz, method="beuler", steps=6,
     return cfg
 
 
+# phase 8: the EOS models. Each is the flagship box (50 x 50 x 20 m
+# cells, the flagship's rock) as a JSON model with its mesh section, a
+# per-cell initial state near hydrostatic equilibrium (bottom layer
+# first, the top layer last), a Dirichlet top boundary holding the top
+# layer's state, a deliverability producer near the top and a 20 kg/s
+# injector low down
+EOS_DZ = 20.0
+EOS_STATES = {
+    # default EOS "we" on IAPWS-97: two-phase (region 4, [P, S_v]) in
+    # the top quarter of the layers, liquid ([P, T]) below at one
+    # temperature, 0.5 K above the saturation temperature of the top
+    # liquid layer: that layer flashes to two-phase on the first Newton
+    # iteration, the deeper (higher-pressure) ones stay liquid
+    "we": {"p_top": 2.0e6, "density": 870.0},
+    # "wse" on IFC-67: brine with salt mass fraction 0.1 at 150 C; the
+    # lower layers' first half in x holds halite (region 5, liquid +
+    # solid saturation 0.02); power-law permeability modifier
+    "wse": {"p_top": 1.0e6, "density": 1000.0},
+    # "wsce": brine with salt 0.05 and a CO2 partial pressure of 2e5 Pa
+    # at 150 C
+    "wsce": {"p_top": 1.0e6, "density": 950.0},
+    # isothermal "w" at 20 C
+    "w": {"p_top": 2.0e5, "density": 998.0},
+}
+
+
+def _saturation_temperature(p):
+    from waiwera_tpu_torch.thermo import iapws97
+
+    t, _ = iapws97.saturation_temperature(
+        torch.as_tensor(np.asarray(p, np.float64)))
+    return t.numpy()
+
+
+def eos_initial_state(kind, nx, ny, nz):
+    """(primary [n, npv], region [n]) of the EOS model `kind`, cells in
+    the mesh's natural order (x fastest, the top layer last)."""
+    st = EOS_STATES[kind]
+    depth = (nz - 1 - np.arange(nz) + 0.5) * EOS_DZ  # per layer, from top
+    p = st["p_top"] + st["density"] * 9.8 * (depth - 0.5 * EOS_DZ)
+    layer = np.repeat(np.arange(nz), nx * ny)
+    i = np.tile(np.arange(nx), ny * nz)
+    pc = p[layer]
+    region = np.ones(nx * ny * nz, np.int32)
+    if kind == "we":
+        two_phase = layer >= nz - max(1, nz // 4)
+        base = nz - max(1, nz // 4)  # lowest two-phase layer
+        t_liq = float(_saturation_temperature(p[base - 1])) + 0.5 \
+            if base > 0 else 200.0
+        # vapour saturation 0.3 at the top, 0.01 at the zone's base
+        frac = (layer - base) / max(1, nz - 1 - base)
+        second = np.where(two_phase, 0.01 + 0.29 * frac, t_liq)
+        region[two_phase] = 4
+        primary = np.stack([pc, second], axis=1)
+    elif kind == "wse":
+        halite = (layer < nz // 2) & (i < nx // 2)
+        region[halite] = 5
+        third = np.where(halite, 0.02, 0.1)
+        primary = np.stack([pc, np.full_like(pc, 150.0), third], axis=1)
+    elif kind == "wsce":
+        primary = np.stack([pc, np.full_like(pc, 150.0),
+                            np.full_like(pc, 0.05),
+                            np.full_like(pc, 2.0e5)], axis=1)
+    else:
+        primary = pc[:, None]
+    return primary, region
+
+
+def eos_model_config(kind, nx, ny, nz, steps=3, size=1.0e4, solver=None):
+    """The EOS model `kind` ("we", "wse", "wsce" or "w") as a whole JSON
+    model: adaptive stepping from `size` for `steps` steps with the
+    schema's default solver (f64 Jacobian, f64 BiCGStab, block-Jacobi)
+    unless `solver` replaces time.step.solver. "we" has no eos and no
+    thermodynamics section."""
+    (dx, dy, dz), _ = flagship_spacing(nx, ny, nz)
+    n = nx * ny * nz
+    top0 = n - nx * ny
+    primary, region = eos_initial_state(kind, nx, ny, nz)
+    cfg = {"title": f"EOS {kind} model {nx} x {ny} x {nz}"}
+    if kind == "wse":
+        cfg["thermodynamics"] = "ifc67"
+        cfg["eos"] = {"name": "wse",
+                      "permeability_modifier": {"type": "power"}}
+    elif kind != "we":
+        cfg["eos"] = {"name": kind}
+    cfg.update({
+        "mesh": {"type": "rectangular", "dx": dx, "dy": dy, "dz": dz},
+        "rock": {
+            "types": [{"name": "res", "permeability": [5e-14, 5e-14, 2e-14],
+                       "porosity": 0.1}],
+            "relative_permeability": {"type": "corey", "slr": 0.3,
+                                      "ssr": 0.1},
+            "capillary_pressure": {"type": "van_genuchten", "P0": 1.0e4,
+                                   "lambda": 0.45, "slr": 1e-3},
+        },
+        "initial": {"primary": primary.tolist(), "region": region.tolist()},
+        "boundaries": [{
+            "primary": primary[-1].tolist(), "region": int(region[-1]),
+            "faces": {"cells": list(range(top0, n)),
+                      "normal": [0.0, 0.0, 1.0]},
+        }],
+        "source": [
+            {"cell": top0 - nx * ny + nx * (ny // 2) + nx // 2,
+             "deliverability": {
+                 "productivity": 1e-12,
+                 "pressure": 0.5 * EOS_STATES[kind]["p_top"]},
+             "direction": "production"},
+            {"cell": nx * (ny // 2) + nx // 4, "rate": 20.0,
+             "enthalpy": 500.0e3},
+        ],
+        "time": {"step": {
+            "size": size, "adapt": {"on": True},
+            "maximum": {"number": steps, "tries": 10},
+        }},
+        "output": {"frequency": 0, "initial": False, "final": True,
+                   "fields": {"flux": ["water"]}},
+    })
+    if solver is not None:
+        cfg["time"]["step"]["solver"] = solver
+    return cfg
+
+
 class MemoryOutput:
     """Output of a run kept in memory, for a machine without h5py: the
     write signature of sim/output.py HDF5Output; each record keeps the
@@ -333,20 +476,25 @@ def _h5py_imports() -> bool:
 
 
 def model_run(workdir, size, method="beuler", steps=6, device=None,
-              use_h5=None, log=log, checkpoint=CHECKPOINT):
+              use_h5=None, log=log, checkpoint=CHECKPOINT, config=None,
+              name=None):
     """Write the model JSON into workdir and run it through the port's
-    entry points (device None: the CUDA device). Returns (Timestepper,
-    output times, wall seconds, which entry point ran). Raises if the
-    run aborted, took another number of steps, wrote times that do not
-    increase or miss the checkpoint, ended in a non-finite state, or
-    left a log that does not end with the timestepper's end."""
+    entry points (device None: the CUDA device). The model is the
+    flagship's model_config, or `config` (with checkpoint None where it
+    has none). Returns (Timestepper, output times, wall seconds, which
+    entry point ran). Raises if the run aborted, took another number of
+    steps, wrote times that do not increase or miss the checkpoint,
+    ended in a non-finite state, or left a log that does not end with the
+    timestepper's end."""
     from waiwera_tpu_torch import cli
 
-    name = f"model_{method}_{'x'.join(map(str, size))}"
+    if config is None:
+        config = model_config(*size, method=method, steps=steps,
+                              checkpoint=checkpoint)
+    name = name or f"model_{method}_{'x'.join(map(str, size))}"
     fn = os.path.join(workdir, name + ".json")
     with open(fn, "w") as f:
-        json.dump(model_config(*size, method=method, steps=steps,
-                               checkpoint=checkpoint), f)
+        json.dump(config, f)
     log_fn = os.path.join(workdir, name + ".yaml")
     if use_h5 is None:
         use_h5 = _h5py_imports()
@@ -390,10 +538,11 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
                            f"of {steps}")
     if not all(b > a for a, b in zip(times, times[1:])):
         raise RuntimeError(f"{name}: output times {times} do not increase")
-    if checkpoint not in times:
+    if checkpoint is not None and checkpoint not in times:
         raise RuntimeError(f"{name}: checkpoint {checkpoint} not in {times}")
     n = ts.sim.mesh.num_cells
-    if tuple(ts.final_y.shape) != (n, 3) or not bool(
+    npv = ts.sim.eos.num_primary_variables
+    if tuple(ts.final_y.shape) != (n, npv) or not bool(
             torch.isfinite(ts.final_y).all()):
         raise RuntimeError(f"{name}: final state {tuple(ts.final_y.shape)} "
                            "or not finite")
@@ -452,6 +601,136 @@ def check_bench(res, counts):
         if n <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the "
                                "main path")
+
+
+# phase 8: (label, EOS model, size, steps, time.step.solver or None for
+# the schema's default f64 solver)
+BENCH_SOLVER = {"nonlinear": {"minimum": {"iterations": 1}},
+                "linear": {"dtype": "float32", "jacobian_dtype": "float32",
+                           "preconditioner": {"type": "bjacobi"}}}
+
+
+def eos_runs():
+    from waiwera_tpu_torch.bench import REDUCED
+
+    return (("a", "we", FLAGSHIP, 4, None),
+            ("b", "wse", REDUCED, 3, BENCH_SOLVER),
+            ("c", "wsce", REDUCED, 3, None),
+            ("c", "w", REDUCED, 3, None))
+
+
+def jacobian_seconds(ts, reps=2):
+    """Best of `reps` synchronised calls of System.jacobian_parts at the
+    run's final state, in the run's Jacobian dtype (after the run's
+    calls, so warm)."""
+    from waiwera_tpu_torch.solver.system import MethodCoeffs
+
+    sim = ts.sim
+    dtype = (torch.float32 if ts.newton_params.jacobian_dtype == "float32"
+             else torch.float64)
+    lhs, _, _ = sim.lhs_at(ts.final_y, ts.final_region)
+    coeffs = MethodCoeffs(c_lhs=1.0, dt_eff=1.0e4, const=-lhs)
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.system.jacobian_parts(ts.final_y, ts.final_region, sim.rock,
+                                  coeffs, 0.0, 1.0e4, tangent_dtype=dtype)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def eos_model_run(workdir, label, kind, size, steps, solver, counters,
+                  log=log):
+    """Run (label) of phase 8: the EOS model `kind` as a JSON file
+    through the port's entry points on the card, with every kernel count
+    set to 0 just before and read just after. Raises unless the run took
+    the card, and launches of the kernel of the run's linear dtype equal
+    its Krylov matvecs > 0. Returns (Timestepper, launches, record)."""
+    for c in counters.values():
+        c.count = 0
+    cfg = eos_model_config(kind, *size, steps=steps, solver=solver)
+    name = f"eos_{kind}_{'x'.join(map(str, size))}"
+    ts, _, wall, entry = model_run(workdir, size, steps=steps, log=log,
+                                   checkpoint=None, config=cfg, name=name)
+    counts = {k: c.count for k, c in counters.items()}
+    if ts.sim.device.type != "cuda":
+        raise RuntimeError(f"{name} took {ts.sim.device}")
+    kernel = ("dia_spmv" if ts.newton_params.linear_dtype == "float32"
+              else "dia_spmv_f64")
+    matvecs = ts.stats["matvecs"]
+    if counts[kernel] <= 0 or counts[kernel] != matvecs:
+        raise RuntimeError(f"{name}: {kernel} launches {counts[kernel]} != "
+                           f"Krylov matvecs {matvecs}")
+    jac_s = jacobian_seconds(ts)
+    changed = int((ts.sim.region0 != ts.final_region).sum())
+    st = ts.stats
+    rec = {"run": label, "eos": ts.sim.eos.name,
+           "thermodynamics": ts.sim.thermo.name, "size": list(size),
+           "unknowns": ts.final_y.numel(), "entry": entry, "wall_s": wall,
+           "run_loop_s": sum(st["step_seconds"]), "tries": st["tries"],
+           "steps": ts.taken, "newton": st["newton_iterations"],
+           "bicgstab": st["linear_iterations"], "matvecs": matvecs,
+           "kernel": kernel, "launches": counts,
+           "jacobian_dtype": ts.newton_params.jacobian_dtype,
+           "jacobian_parts_s": jac_s, "regions_changed": changed,
+           "final_regions": sorted(set(ts.final_region.cpu().tolist()))}
+    log(f"phase 8 run ({label}) {json.dumps(rec)}")
+    return ts, counts, rec
+
+
+def eos_phase(workdir, counters, log=log):
+    """Phase 8: runs (a)-(c) of eos_runs() on the card, then the 5 x 4 x 3
+    default-EOS model on the card and on the CPU (d). Returns (records,
+    launches summed over the phase's card runs)."""
+    records = []
+    total = {k: 0 for k in counters}
+    for label, kind, size, steps, solver in eos_runs():
+        ts, counts, rec = eos_model_run(workdir, label, kind, size, steps,
+                                        solver, counters, log)
+        if label == "a":
+            if tuple(ts.final_y.shape) != (FLAGSHIP_ROWS, 2):
+                raise RuntimeError(f"run (a): final state "
+                                   f"{tuple(ts.final_y.shape)}")
+            if rec["regions_changed"] <= 0:
+                raise RuntimeError("run (a): no cell changed region")
+        records.append(rec)
+        for k, n in counts.items():
+            total[k] += n
+        del ts
+        torch.cuda.empty_cache()
+    # (d) the small default-EOS model on the card and on the CPU
+    cfg = eos_model_config("we", 5, 4, 3, steps=3)
+    pair = []
+    for dev in (None, "cpu"):
+        for c in counters.values():
+            c.count = 0
+        ts, _, _, _ = model_run(workdir, (5, 4, 3), steps=3, device=dev,
+                                use_h5=False, log=lambda m: None,
+                                checkpoint=None, config=cfg,
+                                name=f"eos_we_small_{dev or 'card'}")
+        if dev is None:
+            n = counters["dia_spmv_f64"].count
+            if n <= 0 or n != ts.stats["matvecs"]:
+                raise RuntimeError(f"run (d): dia_spmv_f64 launches {n} != "
+                                   f"Krylov matvecs {ts.stats['matvecs']}")
+            for k, c in counters.items():
+                total[k] += c.count
+        pair.append(ts)
+    card, cpu = pair
+    if [c for _, c in card.tried] != [c for _, c in cpu.tried]:
+        raise RuntimeError("run (d): tries differ between the card and the "
+                           f"CPU: {card.tried} {cpu.tried}")
+    np.testing.assert_allclose([d for d, _ in card.tried],
+                               [d for d, _ in cpu.tried], rtol=1e-12)
+    if not torch.equal(card.final_region.cpu(), cpu.final_region):
+        raise RuntimeError("run (d): final regions differ")
+    torch.testing.assert_close(card.final_y.cpu(), cpu.final_y, rtol=2e-5,
+                               atol=2e-5)
+    log(f"phase 8 run (d): {len(card.tried)} tries and {card.taken} steps "
+        "agree between the card and the CPU")
+    return records, total
 
 
 def main() -> int:
@@ -594,6 +873,18 @@ def main() -> int:
     log(f"phase 7 (model run) {time.perf_counter() - t0:.2f} s, of which the "
         f"flagship run {run_wall:.2f} s through {entry}")
 
+    # 8. the EOS models: JSON files with their own EOS, thermodynamics
+    # and curves through the port's entry points on the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        eos_records, eos_counts = eos_phase(workdir, counters)
+    jac_s = {f"{r['run']} {r['eos']}": round(r["jacobian_parts_s"], 4)
+             for r in eos_records}
+    log(f"phase 8 (EOS models) {time.perf_counter() - t0:.2f} s; launches "
+        f"{eos_counts}; jacobian_parts s {jac_s}")
+    if eos_counts["dia_spmv_f64"] <= 0:
+        raise RuntimeError("phase 8: dia_spmv_f64 was not launched")
+
     bw = res["measured_bandwidth_gb_s"] * 1e9
     entries = [
         ("dia_spmv", "dia_spmv.cu", "waiwera_tpu/ops/dia.py:982",
@@ -611,6 +902,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": counts[name],
             "launches_model_run": run_counts[name],
+            "launches_eos_models": eos_counts[name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],

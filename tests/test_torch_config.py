@@ -41,12 +41,15 @@ _NOT_PORTED = NotImplementedError
 
 
 @pytest.mark.parametrize("cfg, error, match", [
-    (_with(["eos", "name"], "we"), _NOT_PORTED, "ROADMAP A12"),
-    (_with(["thermodynamics"], "ifc67"), _NOT_PORTED, "ROADMAP A12"),
-    (_with(["rock", "relative_permeability"], {"type": "linear"}),
-     _NOT_PORTED, "ROADMAP A12"),
-    (_with(["rock", "capillary_pressure"], {"type": "linear"}), _NOT_PORTED,
-     "ROADMAP A12"),
+    # every EOS, thermodynamics and curve of the JAX package is ported:
+    # only a name that neither package knows is an error
+    (_with(["eos", "name"], "wxe"), ValueError, "unknown EOS"),
+    (_with(["thermodynamics"], "ifc68"), ValueError,
+     "unknown thermodynamics"),
+    (_with(["rock", "relative_permeability"], {"type": "brooks"}),
+     ValueError, "unknown relative permeability"),
+    (_with(["rock", "capillary_pressure"], {"type": "leverett"}), ValueError,
+     "unknown capillary pressure"),
     (_with(["source", 0, "limiter"], {"total": 5.0}), _NOT_PORTED,
      "ROADMAP A13"),
     (_with(["source", 1, "rate"], [[0.0, 1.0], [1e5, 2.0]]), _NOT_PORTED,

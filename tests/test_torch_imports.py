@@ -33,10 +33,12 @@ _SCRIPT = textwrap.dedent(
 )
 
 
-# the modules of the model run: the timestepper, output, log and CLI
+# the modules of the model run (the timestepper, output, log and CLI),
+# and the other equations of state with their thermodynamics and tables
 NEW_MODULES = ("utils.config", "utils.logging", "sim.output",
                "sim.timestepper", "cli", "runner", "mesh.rect",
-               "mesh.device")
+               "mesh.device", "utils.interpolation", "thermo.ifc67",
+               "thermo.salt", "eos.w", "eos.we", "eos.wse", "eos.wsge")
 
 
 def _imported():

@@ -13,6 +13,36 @@ import torch
 from waiwera_tpu_torch.tensors import const_like
 
 
+def bisect(f_of, f0, like, steps):
+    """x in [0, 1] with f_of(x) = 0 where f changes sign on [0, 1]: a
+    fixed number of bisection steps from f0 = f_of(0), each a where
+    over every cell (the JAX package's fori_loop)."""
+    a = torch.zeros_like(like)
+    b = torch.ones_like(like)
+    fa = f0
+    for _ in range(steps):
+        m = 0.5 * (a + b)
+        fm = f_of(m)
+        go_left = fa * fm <= 0.0
+        a, b, fa = (
+            torch.where(go_left, a, m),
+            torch.where(go_left, m, b),
+            torch.where(go_left, fa, fm),
+        )
+    return 0.5 * (a + b)
+
+
+def interpolation_fraction(bound, old_second, second):
+    """xi with old_second + xi (second - old_second) = bound (where the
+    Newton path crosses a saturation bound), or -1 where the second
+    primary variable did not move."""
+    ds = second - old_second
+    moved = torch.abs(ds) > 1e-30
+    return torch.where(
+        moved, (bound - old_second) / torch.where(moved, ds, 1.0), -1.0
+    )
+
+
 class EOS:
     name: str = "abstract"
     description: str = ""
@@ -57,8 +87,12 @@ class EOS:
 
     def transition(self, old_primary, primary, region, old_temperature):
         """Region transitions. Returns (new_primary, new_region,
-        transition_mask[N], err[N])."""
-        raise NotImplementedError
+        transition_mask[N], err[N]); none by default (an EOS with one
+        region)."""
+        del old_primary, old_temperature
+        none = torch.zeros(region.shape, dtype=torch.bool,
+                           device=region.device)
+        return primary, region, none, none
 
     def check_primary_variables(self, primary, region):
         """Bounds check. Returns (primary, err[N])."""

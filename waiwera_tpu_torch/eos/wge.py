@@ -1,11 +1,11 @@
-"""Water + non-condensible gas + energy EOS, "wge" and "wae" (air)
-(counterpart of waiwera_tpu/eos/wge.py and eos_wge.F90).
+"""Water + non-condensible gas + energy EOS, "wge", with "wae" (air)
+and "wce" (CO2) (counterpart of waiwera_tpu/eos/wge.py and eos_wge.F90,
+eos_wae.F90, eos_wce.F90).
 
 Three primary variables [P, T|S_v, Pg] in regions 1, 2 and 4; Henry's
 law gas dissolution in the liquid, gas/steam mixtures in the vapour,
 and saturation-line transitions in terms of the water partial pressure
-P - Pg. Only air is ported ("wce" and eos.gas "co2" wait for ROADMAP
-A12).
+P - Pg.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from waiwera_tpu_torch.eos.base import EOS
+from waiwera_tpu_torch.eos.base import EOS, bisect, interpolation_fraction
 from waiwera_tpu_torch.physics.state import FluidState
 from waiwera_tpu_torch.thermo import ncg as ncg_mod
 
@@ -49,7 +49,10 @@ class EOSWaterGasEnergy(EOS):
         eos_cfg = config.get("eos", {}) if config else {}
         if not isinstance(eos_cfg, dict):
             eos_cfg = {}
-        gas_name = "air" if name == "wae" else eos_cfg.get("gas", "air")
+        gas_name = {"wge": None, "wae": "air", "wce": "co2"}[name]
+        if gas_name is None:
+            # the gas named by eos.gas (air by default)
+            gas_name = eos_cfg.get("gas", "air")
         self.gas = ncg_mod.from_name(gas_name)
         self.description = f"Water, {self.gas.name} and energy"
         self.component_names = ("water", self.gas.name)
@@ -193,13 +196,7 @@ class EOSWaterGasEnergy(EOS):
             torch.full_like(p, 1.0 + _SMALL),
             torch.full_like(p, 1.0 - _SMALL),
         )
-        ds = second - old_primary[:, 1]
-        moved = torch.abs(ds) > 1e-30
-        xi = torch.where(
-            moved,
-            (bound - old_primary[:, 1]) / torch.where(moved, ds, 1.0),
-            -1.0,
-        )
+        xi = interpolation_fraction(bound, old_primary[:, 1], second)
         xi_ok = (xi >= 0.0) & (xi <= 1.0)
         p_i = old_primary[:, 0] + xi * (p - old_primary[:, 0])
         pg_i = old_primary[:, 2] + xi * (pg - old_primary[:, 2])
@@ -242,19 +239,7 @@ class EOSWaterGasEnergy(EOS):
         f1 = f_of(torch.ones_like(p))
         bracket = f0 * f1 < 0.0
 
-        a = torch.zeros_like(p)
-        b = torch.ones_like(p)
-        fa = f0
-        for _ in range(_BISECTION_STEPS):
-            m = 0.5 * (a + b)
-            fm = f_of(m)
-            go_left = fa * fm <= 0.0
-            a, b, fa = (
-                torch.where(go_left, a, m),
-                torch.where(go_left, m, b),
-                torch.where(go_left, fa, fm),
-            )
-        x_root = 0.5 * (a + b)
+        x_root = bisect(f_of, f0, p, _BISECTION_STEPS)
         tp_pressure = torch.where(bracket, p0 + x_root * dp, psat_new + pg)
         tp_pg = torch.where(bracket, g0 + x_root * dg, pg)
         tp_sv = torch.where(

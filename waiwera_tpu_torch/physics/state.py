@@ -139,3 +139,19 @@ DEFAULT_POROSITY = 0.1
 DEFAULT_ROCK_DENSITY = 2200.0
 DEFAULT_SPECIFIC_HEAT = 1000.0
 DEFAULT_HEAT_CONDUCTIVITY = 2.5
+
+
+def default_rock(num_cells: int, device="cpu",
+                 dtype=torch.float64) -> RockState:
+    """Every cell with the default rock properties (rock.F90:68-76)."""
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return RockState(
+        permeability=full((num_cells, 3), DEFAULT_PERMEABILITY),
+        wet_conductivity=full((num_cells,), DEFAULT_HEAT_CONDUCTIVITY),
+        dry_conductivity=full((num_cells,), DEFAULT_HEAT_CONDUCTIVITY),
+        porosity=full((num_cells,), DEFAULT_POROSITY),
+        density=full((num_cells,), DEFAULT_ROCK_DENSITY),
+        specific_heat=full((num_cells,), DEFAULT_SPECIFIC_HEAT),
+    )

@@ -3,8 +3,10 @@ conditions into a one-timestep-try function (counterpart of
 waiwera_tpu/sim/simulation.py).
 
 Ported subset of the JSON schema (doc/user/setup_*.rst): thermodynamics
-"iapws"; eos "wge"/"wae" with air; default (fully mobile) relative
-permeability and zero capillarity; mesh zones (cell arrays, boxes,
+"iapws" and "ifc67"; every eos of the JAX package ("w", "we" by default,
+"wge"/"wae"/"wce", "wse", "wsge"/"wsae"/"wsce", the gases air and CO2,
+the salt EOS's permeability modifiers); every relative-permeability and
+capillarity type of the rock section; mesh zones (cell arrays, boxes,
 combinations) and MINC; rock types with scalar properties assigned to
 listed cells, to zones or to all cells, and MINC fracture/matrix rock
 types; constant or per-cell initial primaries and regions, or a restart

@@ -40,3 +40,28 @@ def index_on(table: np.ndarray, device) -> torch.Tensor:
                                       device=device))
         _CACHE[key] = hit
     return hit[1]
+
+
+# Bounds with the JAX package's derivative at a tie: jnp.clip is
+# minimum(maximum(x, lo), hi), and jnp.maximum/minimum split the tangent
+# equally between the two arguments where they are equal (torch.clamp
+# passes all of it). States sit on such ties (a zero gas partial
+# pressure, a zero salt mass fraction), so the EOS chains use these.
+
+def _bound(x: torch.Tensor, v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else x.new_full((), float(v))
+
+
+def maximum(x: torch.Tensor, v) -> torch.Tensor:
+    """jnp.maximum(x, v) for a tensor x and a tensor or number v."""
+    return torch.maximum(x, _bound(x, v))
+
+
+def minimum(x: torch.Tensor, v) -> torch.Tensor:
+    """jnp.minimum(x, v) for a tensor x and a tensor or number v."""
+    return torch.minimum(x, _bound(x, v))
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jnp.clip(x, lo, hi); lo and hi are tensors or numbers."""
+    return minimum(maximum(x, lo), hi)

@@ -11,7 +11,7 @@ def from_name(name: str) -> Thermodynamics:
     if key in ("iapws", "iapws97", "iapws-97"):
         return IAPWS97()
     if key in ("ifc67", "ifc-67"):
-        raise NotImplementedError(
-            "IFC-67 thermodynamics is not ported yet (ROADMAP A12)"
-        )
+        from waiwera_tpu_torch.thermo.ifc67 import IFC67
+
+        return IFC67()
     raise ValueError(f"unknown thermodynamics: {name!r}")

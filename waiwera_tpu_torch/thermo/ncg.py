@@ -1,12 +1,17 @@
-"""Non-condensible gas (NCG) thermodynamics: the NCG base and air
-(counterpart of waiwera_tpu/thermo/ncg.py, classes NCG and AirNCG).
+"""Non-condensible gas (NCG) thermodynamics: air and CO2 (counterpart
+of waiwera_tpu/thermo/ncg.py).
 
 Air follows ncg_air_thermodynamics.F90: real-gas law density, Irvine &
 Liley enthalpy, two-constituent (N2 + O2) Henry's law and the
-kinetic-theory vapour mixture viscosity.
+kinetic-theory vapour mixture viscosity. CO2 follows
+ncg_co2_thermodynamics.F90 (O'Sullivan et al. correlations, a viscosity
+table in the partial pressure). Both have the salting-out variants of
+Henry's law that the salt EOS use.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -17,6 +22,8 @@ from waiwera_tpu_torch.thermo.base import (
     TTRIPLE,
     WATER_MOLECULAR_WEIGHT,
 )
+from waiwera_tpu_torch.thermo.salt import salt_mole_fraction
+from waiwera_tpu_torch.utils.interpolation import InterpolationTable
 
 _TSCALE = 100.0
 
@@ -54,6 +61,20 @@ class NCG:
         """Energy of solution from d(ln H)/dT
         (ncg_thermodynamics.F90:148-162)."""
         dlnh = self.henrys_derivative(t)
+        tk = t + TC_K
+        return -1.0e3 * GAS_CONSTANT * tk * tk * dlnh / self.molecular_weight
+
+    def henrys_constant_salt(self, t, xs):
+        """Henry's constant with salting-out correction
+        (ncg_*_henrys_constant_salt): H_salt = H0 * 10^(m kb(T))."""
+        raise NotImplementedError
+
+    def henrys_derivative_salt(self, t, xs):
+        raise NotImplementedError
+
+    def energy_solution_salt(self, t, xs):
+        """Energy of solution in brine (ncg_energy_solution_salt)."""
+        dlnh = self.henrys_derivative_salt(t, xs)
         tk = t + TC_K
         return -1.0e3 * GAS_CONSTANT * tk * tk * dlnh / self.molecular_weight
 
@@ -133,6 +154,31 @@ class AirNCG(NCG):
             out = out + w * p0 * dhinv / (h * _TSCALE)
         return out
 
+    _HENRY_SALT = np.array([
+        [0.183369, -0.236905, 0.242438, -7.30134e-2, 8.58723e-3],
+        [0.16218, -1.16909e-1, 5.55185e-2, -8.75443e-3, 9.91567e-4],
+    ])  # per constituent (N2, O2), ncg_air_thermodynamics.F90:27-34
+
+    def henrys_constant_salt(self, t, xs):
+        hs = self._constituent_henry(t)
+        m = salt_mole_fraction(xs)
+        out = 0.0
+        for w, h, kbc in zip(self._WEIGHT, hs, self._HENRY_SALT):
+            kb = _poly(kbc, t / _TSCALE)
+            out = out + w * h * torch.pow(10.0, m * kb)
+        return out
+
+    def henrys_derivative_salt(self, t, xs):
+        hs = self._constituent_henry(t)
+        m = salt_mole_fraction(xs)
+        out = 0.0
+        for w, dcoef, h, kbc in zip(self._WEIGHT, self._henry_deriv, hs,
+                                    self._HENRY_SALT):
+            d0 = 1.0e5 * _poly(dcoef, t / _TSCALE) / (h * _TSCALE)
+            dkb = _poly(_poly_deriv(kbc), t / _TSCALE) / _TSCALE
+            out = out + w * (d0 + math.log(10.0) * m * dkb)
+        return out
+
     def mixture_viscosity(self, water_visc, t, pg, xg, phase):
         """Hirschfelder et al. kinetic-theory mixture viscosity
         (ncg_air_thermodynamics.F90:260-338). Returns (visc, err)."""
@@ -167,12 +213,98 @@ class AirNCG(NCG):
         return visc, no_err
 
 
+class CO2NCG(NCG):
+    """CO2 (ncg_co2_thermodynamics.F90): O'Sullivan correlations."""
+
+    name = "CO2"
+    molecular_weight = 44.01
+
+    _HENRY = np.array([
+        0.783666, 1.96025, 8.20574, -7.40674, 2.18380, -0.220999,
+    ])
+    # viscosity coefficient table: rows at Pg = 0,10,15,20,30 MPa,
+    # columns = polynomial coefficients in T
+    _VISC_P = np.array([0.0, 10.0, 15.0, 20.0, 30.0])
+    _VISC = np.array([
+        [1.3578, 4.9227e-3, -2.9661e-6, 2.8529e-9, -2.1829e-12],
+        [3.9189, -35.984e-3, 0.25825e-3, -7.1178e-7, 6.9578e-10],
+        [9.6607, -135.479e-3, 0.90087e-3, -2.4727e-6, 2.4156e-9],
+        [13.1566, -179.352e-3, 1.12474e-3, -2.98864e-6, 2.85911e-9],
+        [14.7968, -160.731e-3, 0.850257e-3, -1.99076e-6, 1.73423e-9],
+    ])
+    _HENRY_SALT = np.array([
+        1.19784e-1, -7.17823e-2, 4.93854e-2, -1.03826e-2, 1.08233e-3,
+    ])  # ncg_co2_thermodynamics.F90:18-21
+
+    def __init__(self):
+        self._henry_deriv = _poly_deriv(self._HENRY)
+        self._henry_salt_deriv = _poly_deriv(self._HENRY_SALT)
+        self._visc_table = InterpolationTable(
+            np.column_stack([self._VISC_P, self._VISC])
+        )
+
+    def properties(self, pg, t):
+        """(density, enthalpy, err) from the density and enthalpy
+        correlations (ncg_co2_thermodynamics.F90:100-127)."""
+        tk = t + TC_K
+        pp = pg * 1.0e-6
+        tc = (0.01 * tk) ** (10.0 / 3.0)
+        hci = (
+            1.667
+            + 0.001542 * tk
+            - 0.7948 * torch.log10(tk)
+            - 41.35 / tk
+        )
+        enthalpy = 1.0e6 * (
+            hci - 0.3571 * pp * (1.0 + 0.07576 * pp) / tc
+        )
+        vc = 0.00018882 * tk - pp * (0.0824 + 0.01249 * pp) / tc
+        err = vc <= 0.0
+        density = pp / torch.where(err, 1.0, vc)
+        density = torch.where(err, 0.0, density)
+        return density, enthalpy, err
+
+    def henrys_constant(self, t):
+        return 1.0e8 * _poly(self._HENRY, t / _TSCALE)
+
+    def henrys_derivative(self, t):
+        h = self.henrys_constant(t)
+        return (
+            1.0e8 * _poly(self._henry_deriv, t / _TSCALE) / (h * _TSCALE)
+        )
+
+    def henrys_constant_salt(self, t, xs):
+        m = salt_mole_fraction(xs)
+        kb = _poly(self._HENRY_SALT, t / _TSCALE)
+        return self.henrys_constant(t) * torch.pow(10.0, m * kb)
+
+    def henrys_derivative_salt(self, t, xs):
+        m = salt_mole_fraction(xs)
+        dkb = _poly(self._henry_salt_deriv, t / _TSCALE) / _TSCALE
+        return self.henrys_derivative(t) + math.log(10.0) * m * dkb
+
+    def gas_viscosity(self, pg, t):
+        """(viscosity, err): the coefficient table interpolated in the
+        partial pressure (MPa), then a polynomial in t."""
+        err = pg > 300.0e5
+        coefs = self._visc_table(pg * 1e-6)  # [..., 5]
+        v = coefs[..., 4]
+        for k in (3, 2, 1, 0):
+            v = v * t + coefs[..., k]
+        return 1.0e-5 * v, err
+
+    def mixture_viscosity(self, water_visc, t, pg, xg, phase):
+        if phase == 0:
+            return water_visc, torch.zeros(t.shape, dtype=torch.bool,
+                                           device=t.device)
+        gv, err = self.gas_viscosity(pg, t)
+        return water_visc * (1.0 - xg) + gv * xg, err
+
+
 def from_name(name: str) -> NCG:
     key = name.strip().lower()
     if key == "air":
         return AirNCG()
     if key == "co2":
-        raise NotImplementedError(
-            "NCG 'co2' is not ported yet (ROADMAP A12, other EOS)"
-        )
+        return CO2NCG()
     raise ValueError(f"unknown NCG: {name!r}")
