@@ -68,12 +68,39 @@ Phases (any failure raises and the exit code is nonzero):
    changed. Each run's System.jacobian_parts is timed at its final
    state. (d) the 5 x 4 x 3 "we" model on the card and on the CPU: the
    same tries and sizes (rtol 1e-12), regions equal, y within rtol 2e-5,
-   atol 2e-5.
+   atol 2e-5;
+9. a production field (network_model_config) on the model of 8 (a) at
+   128 x 64 x 64: 64 deliverability producers on an 8 x 8 grid of
+   columns in the lowest two-phase layer (half with a fixed
+   productivity and 'initial' reference pressure, half with productivity
+   from an initial rate against a reference pressure table), 4 groups
+   of 16 with separators at 0.55 MPa and steam limiters, a progressive
+   field group with a total limiter, north and south groups with
+   separators feeding two reinjectors to 8 injectors each in the bottom
+   layer (rate outputs, overflow named; proportion outputs), 8 recharge
+   sources, a make-up injector with a rate table, 2 liquid tracers
+   (decay 1e-9 /s; Arrhenius 1e-6 /s, 2,000 J/mol, diffusion 1e-9), a
+   permeability table on the producers' rock type and a porosity table
+   on the injectors', 3 adaptive steps from 1e4 s with the source,
+   group, reinjector and tracer fields written every step, through
+   Simulation(config) + Timestepper with the in-memory output and no
+   device named, the kernel counts set to 0 just before and read just
+   after. Checks: not aborted, 3 steps, a finite 532,480 x 2 final
+   state, dia_spmv_f64 launches = Krylov matvecs > 0, every group's
+   limited flow within its limit x (1 + 1e-9), no reinjector injecting
+   more than the separated water it receives, a converged tracer solve
+   for every accepted step, tracers finite and >= -1e-12, and rock_for
+   giving another permeability at the second try than at the first.
+   Prints the run's times and counts, GMRES iterations per tracer solve,
+   tracer-solve seconds per step, one synchronised flows(collect=) call,
+   jacobian_parts with the network inside and host syncs per try. Then
+   the same network at 5 x 4 x 3 on the card and on the CPU: the same
+   tries, y within rtol 2e-5, atol 2e-5, tracers within 1e-6 of max|x|.
 
 Prints each bench section's wall time on its own line, then the model
 runs' times and counts, the bench's full JSON record, one JSON line
-{"kernels": [...]} (launches on the bench path, on the phase 7 model run
-and over phase 8's card runs) and the card's nvidia-smi name and power
+{"kernels": [...]} (launches on the bench path, on the phase 7 model run,
+over phase 8's card runs and on phase 9's full-size run) and the card's nvidia-smi name and power
 limit; the last line is {"ok": true, "device": {...}}. Exits nonzero
 without a CUDA device.
 """
@@ -445,10 +472,132 @@ def eos_model_config(kind, nx, ny, nz, steps=3, size=1.0e4, solver=None):
     return cfg
 
 
+# phase 9: a production field on the default-EOS model of phase 8 (a).
+# Producers on a square grid of columns (8 x 8 at full size) in the
+# lowest two-phase layer, in 4 groups with separators and steam
+# limiters under a field group; two reinjectors, each fed by the
+# separated water of two groups, to 8 injectors each in the bottom
+# layer; recharge on the sides, a make-up injector, two liquid tracers
+# and rock controls
+NETWORK_SEPARATOR_P = 0.55e6
+# limits and reinjection rates per producer of the node, kg/s: sized so
+# that every limiter acts from the first step at any box size
+NETWORK_STEAM_LIMIT = 0.1  # steam of a group
+NETWORK_FIELD_LIMIT = 0.45  # total of the field group
+NETWORK_REINJECT_RATE = 0.125  # each rate output of the first reinjector
+NETWORK_TRACERS = [
+    {"name": "inj", "phase": "liquid", "decay": 1.0e-9},
+    {"name": "arr", "phase": "liquid", "decay": 1.0e-6,
+     "activation": 2000.0, "diffusion": 1.0e-9},
+]
+
+
+def network_model_config(nx, ny, nz, steps=3, size=1.0e4):
+    """The production-field model of phase 9 on an nx x ny x nz box:
+    eos_model_config("we", ...) with its sources replaced by a source
+    network (the keys of the JAX package's _parse_source and
+    _parse_network), a tracer section, rock controls and output of the
+    source, group, reinjector and tracer fields every step. The well
+    grid is g x g columns, g = min(8, nx, ny) rounded down to even."""
+    cfg = eos_model_config("we", nx, ny, nz, steps=steps, size=size)
+    primary, _ = eos_initial_state("we", nx, ny, nz)
+    g = max(2, min(8, nx, ny) // 2 * 2)
+    layer = nz - max(1, nz // 4)  # the lowest two-phase layer
+
+    def cell(i, j, k):
+        return i + nx * (j + ny * k)
+
+    cols = [(int((2 * a + 1) * nx // (2 * g)), int((2 * b + 1) * ny // (2 * g)))
+            for b in range(g) for a in range(g)]
+    sources, prod_cells = [], []
+    for w, (i, j) in enumerate(cols):
+        c = cell(i, j, layer)
+        p0 = float(primary[c, 0])
+        if w % 2 == 0:
+            deliv = {"productivity": 2.0e-12, "pressure": "initial"}
+            src = {"name": f"p{w}", "cell": c, "deliverability": deliv,
+                   "direction": "production"}
+        else:
+            # productivity from an initial rate against a falling
+            # reference pressure
+            deliv = {"pressure": [[0.0, 0.8 * p0], [1.0e5, 0.7 * p0]]}
+            src = {"name": f"p{w}", "cell": c, "rate": -2.0,
+                   "deliverability": deliv, "direction": "production"}
+        sources.append(src)
+        prod_cells.append(c)
+    per = len(cols) // 4
+    groups = [{"name": f"g{k}",
+               "in": [f"p{w}" for w in range(k * per, (k + 1) * per)],
+               "separator": {"pressure": NETWORK_SEPARATOR_P},
+               "limiter": {"steam": NETWORK_STEAM_LIMIT * per}}
+              for k in range(4)]
+    groups.append({"name": "field", "in": ["g0", "g1", "g2", "g3"],
+                   "scaling": "progressive",
+                   "limiter": {"total": NETWORK_FIELD_LIMIT * len(cols)}})
+    for name, members in (("north", ["g0", "g1"]), ("south", ["g2", "g3"])):
+        groups.append({"name": name, "in": members,
+                       "separator": {"pressure": NETWORK_SEPARATOR_P}})
+    # 16 injectors on a 4 x 4 grid of the bottom layer
+    inj_cells = [cell(int((2 * a + 1) * nx // 8), int((2 * b + 1) * ny // 8),
+                      0) for b in range(4) for a in range(4)]
+    inj_cell_set = set(inj_cells)
+    for k, c in enumerate(inj_cells):
+        sources.append({"name": f"i{k}", "cell": c,
+                        "tracer": {"inj": 1.0e-4}})
+    reinject = [
+        {"name": "reinj_a", "in": "north", "overflow": "reinj_b",
+         "water": [{"out": f"i{k}", "rate": NETWORK_REINJECT_RATE * per}
+                   for k in range(8)]},
+        {"name": "reinj_b", "in": "south",
+         "water": [{"out": f"i{k}", "proportion": 0.1}
+                   for k in range(8, 16)]},
+    ]
+    # recharge in 8 side cells, 4 on each x side
+    for k in range(8):
+        i = 0 if k < 4 else nx - 1
+        j = (k % 4) * ny // 4
+        sources.append({"name": f"rch{k}", "cell": cell(i, j, k % nz),
+                        "recharge": {"coefficient": 1.0e-6,
+                                     "pressure": "initial"}})
+    sources.append({"name": "makeup", "cell": cell(nx // 2, ny // 2, 0),
+                    "rate": [[0.0, 5.0], [1.0e5, 10.0]],
+                    "enthalpy": 4.0e5})
+    cfg["title"] = f"production field model {nx} x {ny} x {nz}"
+    cfg["source"] = sources
+    cfg["network"] = {"group": groups, "reinject": reinject}
+    cfg["tracer"] = [dict(t) for t in NETWORK_TRACERS]
+    cfg["initial"]["tracer"] = [0.0, 1.0e-3]
+    res = cfg["rock"]["types"][0]
+    cfg["rock"]["types"] = [
+        res,
+        {"name": "prod", "cells": prod_cells,
+         "permeability": [[0.0, 5e-14, 5e-14, 2e-14],
+                          [1.0e5, 1e-13, 1e-13, 4e-14]],
+         "porosity": 0.1},
+        {"name": "inj", "cells": sorted(inj_cell_set),
+         "permeability": [5e-14, 5e-14, 2e-14],
+         "porosity": [[0.0, 0.1], [1.0e5, 0.12]]},
+    ]
+    cfg["output"] = {
+        "frequency": 1, "initial": False, "final": False,
+        "fields": {
+            "flux": ["water"],
+            "source": ["natural_cell_index", "component", "rate",
+                       "enthalpy", "water_rate", "steam_rate", "tracer_flow"],
+            "network_group": ["rate", "enthalpy", "water_rate",
+                              "steam_rate"],
+            "network_reinject": ["water_rate", "output_water_rate",
+                                 "overflow_water_rate"],
+        },
+    }
+    return cfg
+
+
 class MemoryOutput:
     """Output of a run kept in memory, for a machine without h5py: the
     write signature of sim/output.py HDF5Output; each record keeps the
-    time, the interior pressures and the water flux on the host."""
+    time, the interior pressures, the water flux, the source and network
+    fields and the interior tracers on the host."""
 
     filename = None
     face_group = True  # flux output is on
@@ -456,12 +605,16 @@ class MemoryOutput:
     def __init__(self, sim):
         self.n = sim.mesh.num_interior_cells
         self.times, self.pressure, self.flux_water = [], [], []
+        self.source_data, self.tracer = [], []
 
     def write(self, index, time, fluid, source_data=None, tracer=None,
               fluxes=None):
         self.times.append(float(time))
         self.pressure.append(fluid.pressure[: self.n].cpu().numpy())
         self.flux_water.append(np.asarray(fluxes)[:, 0].copy())
+        self.source_data.append(dict(source_data or {}))
+        self.tracer.append(None if tracer is None
+                           else tracer[: self.n].cpu().numpy())
 
     def close(self):
         pass
@@ -477,12 +630,15 @@ def _h5py_imports() -> bool:
 
 def model_run(workdir, size, method="beuler", steps=6, device=None,
               use_h5=None, log=log, checkpoint=CHECKPOINT, config=None,
-              name=None):
+              name=None, sim_hook=None):
     """Write the model JSON into workdir and run it through the port's
     entry points (device None: the CUDA device). The model is the
     flagship's model_config, or `config` (with checkpoint None where it
-    has none). Returns (Timestepper, output times, wall seconds, which
-    entry point ran). Raises if the run aborted, took another number of
+    has none). sim_hook(sim), where given, is called on the in-memory
+    path's Simulation before the run. Returns (Timestepper, output times,
+    wall seconds, which entry point ran); on the in-memory path the
+    Timestepper's `output` is the MemoryOutput. Raises if the run
+    aborted, took another number of
     steps, wrote times that do not increase or miss the checkpoint,
     ended in a non-finite state, or left a log that does not end with the
     timestepper's end."""
@@ -521,6 +677,8 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
         with open(fn) as f:
             config = TrackedConfig(json.load(f))
         sim = Simulation(config, device=device)
+        if sim_hook is not None:
+            sim_hook(sim)
         out = MemoryOutput(sim)
         logger = Logger(filename=log_fn)
         try:
@@ -733,6 +891,153 @@ def eos_phase(workdir, counters, log=log):
     return records, total
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def flows_seconds(ts, reps=3):
+    """Best of `reps` synchronised calls of the network's
+    flows(collect=) at the run's final state over its last step."""
+    net = ts.sim.sources
+    t1 = ts.final_time
+    t0 = t1 - ts.accepted[-1][0]
+    best = float("inf")
+    for _ in range(reps):
+        _sync(ts.sim.device)
+        w0 = time.perf_counter()
+        net.flows(ts.final_fluid, t0, t1, collect={})
+        _sync(ts.sim.device)
+        best = min(best, time.perf_counter() - w0)
+    return best
+
+
+def check_network_run(ts, rock_seen):
+    """Phase 9's checks on a production-field run: every output record's
+    group limits and reinjector balances, the tracers, the tracer solves
+    and the rock controls. Raises on the first that fails."""
+    net = ts.sim.sources
+    out = ts.output
+    gnames = [g.name for g in net.groups]
+    limits = {g.name: g.limiter for g in net.groups if g.limiter is not None}
+    for rec, x in zip(out.source_data, out.tracer):
+        steam = rec["network_group_steam_rate"]
+        total = rec["network_group_rate"]
+        for name, lim in limits.items():
+            k = gnames.index(name)
+            for value, entry in ((steam[k], lim.steam), (total[k], lim.total)):
+                if entry is not None and abs(value) > entry[0] * (1 + 1e-9):
+                    raise RuntimeError(f"group {name}: flow {value} over "
+                                       f"its limit {entry[0]}")
+        if not np.all(rec["network_reinject_output_water_rate"]
+                      <= rec["network_reinject_water_rate"] * (1 + 1e-9)):
+            raise RuntimeError(f"a reinjector injects more than it "
+                               f"receives: {rec}")
+        if x is None or not np.isfinite(x).all() or x.min() < -1e-12:
+            raise RuntimeError("tracer field not finite or negative: min "
+                               f"{None if x is None else x.min()}")
+    conv = ts.stats["tracer_converged"]
+    if sum(conv) < ts.taken:
+        raise RuntimeError(f"tracer solves converged {conv} for "
+                           f"{ts.taken} steps")
+    if len(rock_seen) < 2 or bool(torch.equal(rock_seen[0], rock_seen[1])):
+        raise RuntimeError("rock_for gave the same permeability at the "
+                           "first two tries")
+
+
+def network_phase(workdir, counters, log=log):
+    """Phase 9: the production-field model (network_model_config) at the
+    flagship size on the card, then at 5 x 4 x 3 on the card and on the
+    CPU. Returns (record, launches of the card run at full size)."""
+    from waiwera_tpu_torch.sim.simulation import Simulation
+
+    cfg = network_model_config(*FLAGSHIP, steps=3)
+    rock_seen = []
+
+    def hook(sim):
+        # each try's rock: the producers' permeability, kept on the card
+        prod = sim.rock_controls[0][1][0]
+        plain = Simulation.rock_for
+
+        def rock_for(t):
+            rock = plain(sim, t)
+            rock_seen.append(rock.permeability[prod].clone())
+            return rock
+
+        sim.rock_for = rock_for
+
+    for c in counters.values():
+        c.count = 0
+    ts, _, wall, entry = model_run(workdir, FLAGSHIP, steps=3, use_h5=False,
+                                   log=log, checkpoint=None, config=cfg,
+                                   name="network_field", sim_hook=hook)
+    counts = {k: c.count for k, c in counters.items()}
+    if ts.sim.device.type != "cuda":
+        raise RuntimeError(f"phase 9 took {ts.sim.device}")
+    if tuple(ts.final_y.shape) != (FLAGSHIP_ROWS, 2):
+        raise RuntimeError(f"phase 9: final state {tuple(ts.final_y.shape)}")
+    matvecs = ts.stats["matvecs"]
+    if counts["dia_spmv_f64"] <= 0 or counts["dia_spmv_f64"] != matvecs:
+        raise RuntimeError(f"phase 9: dia_spmv_f64 launches "
+                           f"{counts['dia_spmv_f64']} != Krylov matvecs "
+                           f"{matvecs}")
+    check_network_run(ts, rock_seen)
+    st = ts.stats
+    nsolve = len(st["tracer_iterations"])
+    rec = {
+        "size": list(FLAGSHIP), "unknowns": ts.final_y.numel(),
+        "sources": ts.sim.sources.num_sources,
+        "groups": len(ts.sim.sources.groups),
+        "reinjectors": len(ts.sim.sources.reinjectors),
+        "tracers": ts.sim.tracers.num_tracers, "entry": entry,
+        "wall_s": wall, "run_loop_s": sum(st["step_seconds"]),
+        "step_s": st["step_seconds"], "tries": st["tries"],
+        "steps": ts.taken, "newton": st["newton_iterations"],
+        "bicgstab": st["linear_iterations"], "matvecs": matvecs,
+        "launches": counts,
+        "gmres_iterations_per_tracer_solve": st["tracer_iterations"],
+        "tracer_solve_s_per_step": st["tracer_seconds"] / max(nsolve, 1),
+        "tracer_host_syncs_per_solve": st["host_syncs_tracer"]
+        / max(nsolve, 1),
+        "flows_collect_s": flows_seconds(ts),
+        "jacobian_parts_s": jacobian_seconds(ts),
+        "jacobian_parts_s_phase8a_without_network": "0.17-0.19",
+        "host_syncs_per_try": (st["host_syncs_step"]
+                               + st["host_syncs_timestepper"]) / st["tries"],
+        "host_syncs_per_try_phase8a": 156.5,
+        "accepted_sizes": [a for a, _, _ in ts.accepted],
+        "output_records": len(ts.output.times),
+    }
+    log(f"phase 9 run {json.dumps(rec)}")
+    del ts
+    torch.cuda.empty_cache()
+
+    # the same network on a 5 x 4 x 3 box, on the card and on the CPU
+    small = network_model_config(5, 4, 3, steps=3)
+    pair = []
+    for dev in (None, "cpu"):
+        ts, _, _, _ = model_run(workdir, (5, 4, 3), steps=3, device=dev,
+                                use_h5=False, log=lambda m: None,
+                                checkpoint=None, config=small,
+                                name=f"network_small_{dev or 'card'}")
+        pair.append(ts)
+    card, cpu = pair
+    if [c for _, c in card.tried] != [c for _, c in cpu.tried]:
+        raise RuntimeError("phase 9 small: tries differ between the card and "
+                           f"the CPU: {card.tried} {cpu.tried}")
+    np.testing.assert_allclose([d for d, _ in card.tried],
+                               [d for d, _ in cpu.tried], rtol=1e-12)
+    torch.testing.assert_close(card.final_y.cpu(), cpu.final_y, rtol=2e-5,
+                               atol=2e-5)
+    xmax = float(cpu.final_tracer.abs().max())
+    torch.testing.assert_close(card.final_tracer.cpu(), cpu.final_tracer,
+                               rtol=1e-6, atol=1e-6 * xmax)
+    log(f"phase 9 small: {len(card.tried)} tries and {card.taken} steps "
+        "agree between the card and the CPU, tracers within 1e-6 of "
+        f"max|x| = {xmax:.6g}")
+    return rec, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -885,6 +1190,14 @@ def main() -> int:
     if eos_counts["dia_spmv_f64"] <= 0:
         raise RuntimeError("phase 8: dia_spmv_f64 was not launched")
 
+    # 9. the production-field model: the source network, tracers and rock
+    # controls at the flagship size through the port's entry points
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        net_record, net_counts = network_phase(workdir, counters)
+    log(f"phase 9 (production field) {time.perf_counter() - t0:.2f} s; "
+        f"launches {net_counts}")
+
     bw = res["measured_bandwidth_gb_s"] * 1e9
     entries = [
         ("dia_spmv", "dia_spmv.cu", "waiwera_tpu/ops/dia.py:982",
@@ -903,6 +1216,7 @@ def main() -> int:
             "launches": counts[name],
             "launches_model_run": run_counts[name],
             "launches_eos_models": eos_counts[name],
+            "launches_network_model": net_counts[name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],

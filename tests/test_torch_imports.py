@@ -34,11 +34,13 @@ _SCRIPT = textwrap.dedent(
 
 
 # the modules of the model run (the timestepper, output, log and CLI),
-# and the other equations of state with their thermodynamics and tables
+# the other equations of state with their thermodynamics and tables, and
+# the source network, tracers and the Krylov solvers
 NEW_MODULES = ("utils.config", "utils.logging", "sim.output",
                "sim.timestepper", "cli", "runner", "mesh.rect",
                "mesh.device", "utils.interpolation", "thermo.ifc67",
-               "thermo.salt", "eos.w", "eos.we", "eos.wse", "eos.wsge")
+               "thermo.salt", "eos.w", "eos.we", "eos.wse", "eos.wsge",
+               "sim.network", "sim.tracer", "solver.krylov")
 
 
 def _imported():

@@ -17,6 +17,7 @@ import copy
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from test_torch_run import F64, LOOSE, _Runner, _time
 from torch_parity import assert_same_records, jax_sim, np_, torch_sim
@@ -249,11 +250,35 @@ def test_minc_group_matches(tmp_path):
 
 
 def test_tracer_output_raises(written, tmp_path):
-    from waiwera_tpu_torch.sim.output import HDF5Output
+    """Tracer fields are written as cell_fields/tracer_<name>, as the JAX
+    package writes them (the refusal of the slices before is gone; the
+    name is kept)."""
+    from waiwera_tpu.sim.output import HDF5Output as JOut
+    from waiwera_tpu.sim.tracer import TracerSet as JSet
+    from waiwera_tpu_torch.sim.output import HDF5Output as TOut
+    from waiwera_tpu_torch.sim.tracer import TracerSet as TSet
 
     runner, files = written
-    out = HDF5Output(str(tmp_path / "t.h5"), runner.sim_t)
-    ts = files["torch"][2]
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        out.write(0, 0.0, ts.final_fluid, tracer=np.zeros((80, 1)))
-    out.close()
+    x = np.random.default_rng(0).uniform(
+        0.0, 1e-3, (runner.sim_t.mesh.num_cells, 2))
+    cfg = [{"name": "a"}, {"name": "b"}]
+    paths = {}
+    for which, cls, sim, tset, tracer in (
+            ("jax", JOut, runner.sim_j, JSet, x),
+            ("torch", TOut, runner.sim_t, TSet, torch.as_tensor(x))):
+        sim.tracers = tset(cfg, sim.eos)
+        try:
+            paths[which] = str(tmp_path / f"{which}_tracer.h5")
+            out = cls(paths[which], sim)
+            out.write(0, 0.0, files[which][2].final_fluid, tracer=tracer)
+            out.close()
+        finally:
+            sim.tracers = None
+    n = runner.sim_t.mesh.num_interior_cells
+    with h5py.File(paths["jax"]) as fj, h5py.File(paths["torch"]) as ft:
+        assert _datasets(ft) == _datasets(fj)
+        for k, nm in enumerate("ab"):
+            got = np.asarray(ft[f"cell_fields/tracer_{nm}"])
+            np.testing.assert_array_equal(
+                got, np.asarray(fj[f"cell_fields/tracer_{nm}"]))
+            np.testing.assert_array_equal(got, x[None, :n, k])

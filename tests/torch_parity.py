@@ -1,9 +1,9 @@
 """Shared set-up for the parity tests of waiwera_tpu_torch against
 waiwera_tpu: the flagship model's configuration (bench.py build_sim, as
 waiwera_tpu_torch/bench.py copies it, optionally with its MINC lower
-half) on a small box, and the EOS models of chip_smoke.py, built through
-both packages from the same config dict and mesh spacing, and numpy
-conversions between them."""
+half) on a small box, the EOS models and the production-field model of
+chip_smoke.py, built through both packages from the same config dict and
+mesh spacing, and numpy conversions between them."""
 
 from __future__ import annotations
 
@@ -12,11 +12,12 @@ import copy
 import numpy as np
 
 from chip_smoke import (build_sim, eos_model_config, flagship_config,
-                        flagship_spacing)
+                        flagship_spacing, network_model_config)
 
 __all__ = ["RecordingLogger", "assert_same_records", "eos_model_config",
-           "flagship_config", "jax_coeffs", "jax_sim", "model_config", "np_",
-           "sim_pair", "torch_coeffs", "torch_sim"]
+           "flagship_config", "jax_coeffs", "jax_sim", "model_config",
+           "network_model_config", "np_", "sim_pair", "torch_coeffs",
+           "torch_sim"]
 
 
 def jax_sim(nx=5, ny=4, nz=3, minc=False):

@@ -55,6 +55,7 @@ class EOS:
     primary_variable_names: tuple
     default_primary: np.ndarray
     default_region: int = 1
+    default_tracer_phase: str = "liquid"
     isothermal: bool = False
     required_output_fluid_fields: tuple = ()
     default_output_fluid_fields: tuple = ()

@@ -107,6 +107,7 @@ class EOSWaterSaltEnergy(EOS):
         "salt_mass_fraction/solid_saturation",
     )
     default_region = 1
+    default_tracer_phase = "liquid"
     isothermal = False
     required_output_fluid_fields = (
         "pressure",

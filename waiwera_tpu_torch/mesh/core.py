@@ -20,7 +20,7 @@ NotImplementedError until then.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,6 +47,7 @@ class BoundarySpec:
     region: int
     cells: np.ndarray  # ghost cell indices (into the padded cell range)
     faces: np.ndarray  # face indices of the boundary faces
+    tracer: Optional[np.ndarray] = None  # boundary tracer values
 
 
 @dataclass
@@ -392,12 +393,13 @@ def add_boundaries(mesh: Mesh, boundary_specs: List[dict], npv: int):
                 cells=np.asarray(ghosts, dtype=np.int64),
                 faces=np.arange(first_face, first_face + len(ghosts),
                                 dtype=np.int64),
+                tracer=(
+                    np.atleast_1d(np.asarray(spec["tracer"], np.float64))
+                    if spec.get("tracer") is not None
+                    else None
+                ),
             )
         )
-        if spec.get("tracer") is not None:
-            raise NotImplementedError(
-                "boundary tracer values are not ported yet (ROADMAP A13)"
-            )
 
     n_new = ghost_index - mesh.num_cells
     if n_new == 0:

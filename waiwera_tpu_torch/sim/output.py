@@ -7,7 +7,7 @@ CREDO reader used by the benchmark suite): groups /cell_fields,
 /source_fields with [ntime, n] datasets named like fluid_pressure,
 fluid_temperature, ...; a time dataset [ntime, 1]; and cell_index
 giving the natural cell ordering. This file doubles as the restart
-checkpoint (initial.F90:421-679). Tracer datasets wait for ROADMAP A13.
+checkpoint (initial.F90:421-679), tracer fields included.
 
 h5py is imported where the file is opened, not with this module: a
 machine without h5py imports the package and fails only here. Each
@@ -238,10 +238,12 @@ class HDF5Output:
             ds = self._cell_dataset("fluid_" + name)
             ds.resize((nt + 1, self.n))
             ds[nt] = self._field_values(fluid, name)
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracer output is not ported yet (ROADMAP A13)"
-            )
+        if tracer is not None and self.sim.tracers is not None:
+            x = _np(tracer[: self.n])
+            for k, nm in enumerate(self.sim.tracers.names):
+                ds = self._cell_dataset(f"tracer_{nm}")
+                ds.resize((nt + 1, self.n))
+                ds[nt] = x[:, k]
         if fluxes is not None and self.face_group is not None:
             fx = _np(fluxes)
             for nm, k in self.flux_fields:

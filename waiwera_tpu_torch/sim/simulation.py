@@ -7,15 +7,17 @@ Ported subset of the JSON schema (doc/user/setup_*.rst): thermodynamics
 "wge"/"wae"/"wce", "wse", "wsge"/"wsae"/"wsce", the gases air and CO2,
 the salt EOS's permeability modifiers); every relative-permeability and
 capillarity type of the rock section; mesh zones (cell arrays, boxes,
-combinations) and MINC; rock types with scalar properties assigned to
-listed cells, to zones or to all cells, and MINC fracture/matrix rock
-types; constant or per-cell initial primaries and regions, or a restart
-from an HDF5 output file; Dirichlet boundaries; the sources of
-sim/network.py. The mesh is passed in or generated from the config
-("type": "rectangular" or "column"; mesh files wait for ROADMAP A16).
-Anything else raises NotImplementedError naming the ROADMAP item that
-will port it. The config is read in the JAX package's order, so that a
-tracked config (utils/config.py) logs the same defaults.
+combinations) and MINC; rock types assigned to listed cells, to zones or
+to all cells, and MINC fracture/matrix rock types, with permeability and
+porosity tables against time (rock controls, rock_for); constant or
+per-cell initial primaries, regions and tracers, or a restart from an
+HDF5 output file; Dirichlet boundaries with boundary tracer values; the
+source network of sim/network.py (controls, separators, limiters,
+groups, reinjectors); passive tracers (sim/tracer.py). The mesh is
+passed in or generated from the config ("type": "rectangular" or
+"column"; mesh files wait for ROADMAP A16, and raise
+NotImplementedError). The config is read in the JAX package's order, so
+that a tracked config (utils/config.py) logs the same defaults.
 
 The simulation runs on the CUDA device unless the caller names another
 device; without a CUDA device, Simulation(...) with no device raises.
@@ -47,11 +49,7 @@ from waiwera_tpu_torch.physics.state import (
 from waiwera_tpu_torch.sim.network import SourceNetwork
 from waiwera_tpu_torch.solver.newton import NewtonParams, newton_solve
 from waiwera_tpu_torch.solver.system import System, method_coeffs
-
-_ROCK_TYPE_KEYS = {
-    "name", "cells", "zones", "permeability", "porosity", "wet_conductivity",
-    "dry_conductivity", "density", "specific_heat", "interpolation",
-}
+from waiwera_tpu_torch.utils.interpolation import InterpolationTable
 
 
 def _not_ported(what: str, item: str):
@@ -117,24 +115,33 @@ class Simulation:
         add_boundaries(mesh, config.get("boundaries", []) or [], npv)
         self.mesh_dev = mesh_arrays(mesh, self.device)
         self.rock = self._setup_rock(rock_cfg, mesh)
-        self.rock_controls = []  # rock property tables: ROADMAP A13
 
-        if config.get("tracer"):
-            raise _not_ported("config section 'tracer'", "A13")
-        self.tracers = None
+        # tracers (tracer.F90 setup_tracers)
+        tracer_cfg = config.get("tracer")
+        if tracer_cfg:
+            from waiwera_tpu_torch.sim.tracer import TracerSet
+
+            self.tracers = TracerSet(tracer_cfg, self.eos)
+        else:
+            self.tracers = None
 
         src_cfg = config.get("source", []) or []
         if isinstance(src_cfg, dict):
             src_cfg = [src_cfg]
         self.sources = (
-            SourceNetwork(src_cfg, config.get("network", {}) or {}, mesh,
-                          self.eos, self.thermo, device=self.device,
-                          zones=self.zones)
+            SourceNetwork(
+                src_cfg, config.get("network", {}) or {}, mesh, self.eos,
+                self.thermo,
+                tracer_names=self.tracers.names if self.tracers else (),
+                device=self.device, zones=self.zones,
+            )
             if src_cfg
             else None
         )
         self.system = System(self.eos, self.mesh_dev, self.sources)
         self.y0, self.region0 = self._setup_initial(config, mesh)
+        if self.tracers is not None:
+            self.tracer0 = self._setup_initial_tracer(config, mesh)
         if self.sources is not None:
             fluid0, _ = self.initial_fluid()
             self.sources.finalize(fluid0)
@@ -253,6 +260,17 @@ class Simulation:
     def _f64(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
 
+    @staticmethod
+    def _is_table_spec(v) -> bool:
+        """A rank-2 "permeability" or "porosity" is a table of values
+        against time driving a rock control (rock_setup.F90:304-312)."""
+        if not isinstance(v, (list, tuple, np.ndarray)):
+            return False
+        a = np.asarray(v, dtype=object)
+        return a.ndim >= 2 or (
+            len(v) > 0 and isinstance(v[0], (list, tuple, np.ndarray))
+        )
+
     def _setup_rock(self, rock_cfg, mesh: Mesh) -> RockState:
         n = mesh.num_cells
         perm = np.full((n, 3), DEFAULT_PERMEABILITY)
@@ -261,32 +279,34 @@ class Simulation:
         poro = np.full(n, DEFAULT_POROSITY)
         dens = np.full(n, DEFAULT_ROCK_DENSITY)
         sph = np.full(n, DEFAULT_SPECIFIC_HEAT)
+        # time-dependent rock property controls (kind, cells, table)
+        # (flow_simulation.F90:62,2050-2094, rock_control.F90)
+        self.rock_controls = []
         for rt in rock_cfg.get("types", []) or []:
-            extra = set(rt) - _ROCK_TYPE_KEYS
-            if extra:
-                raise _not_ported(f"rock type keys {sorted(extra)}", "A13")
             if "zones" in rt:
                 cells = self._zone_cells(rt["zones"])
             elif "cells" in rt:
                 cells = np.asarray(rt["cells"], dtype=np.int64)
             else:
                 cells = np.arange(mesh.num_interior_cells)
-            # interpolation of property tables, read where the JAX
-            # package reads it
-            rt.get("interpolation", "linear")
+            interp = str(rt.get("interpolation", "linear")).lower()
             k_spec = rt.get("permeability", DEFAULT_PERMEABILITY)
-            if np.ndim(k_spec) > 1:
-                raise _not_ported("rock property tables (rock controls)",
-                                  "A13")
+            if self._is_table_spec(k_spec):
+                self.rock_controls.append((
+                    "permeability", np.asarray(cells, np.int64),
+                    InterpolationTable(k_spec, interpolation=interp)))
+                k_spec = DEFAULT_PERMEABILITY
             k = np.atleast_1d(np.asarray(k_spec, dtype=np.float64))
             if len(k) < 3:
                 k = np.concatenate([k, np.full(3 - len(k), k[-1])])
             perm[cells] = k
             p_spec = rt.get("porosity", DEFAULT_POROSITY)
-            if np.ndim(p_spec) > 0:
-                raise _not_ported("rock property tables (rock controls)",
-                                  "A13")
-            poro[cells] = p_spec
+            if self._is_table_spec(p_spec):
+                self.rock_controls.append((
+                    "porosity", np.asarray(cells, np.int64),
+                    InterpolationTable(p_spec, interpolation=interp)))
+            else:
+                poro[cells] = p_spec
             wetk[cells] = rt.get("wet_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
             dryk[cells] = rt.get("dry_conductivity", DEFAULT_HEAT_CONDUCTIVITY)
             dens[cells] = rt.get("density", DEFAULT_ROCK_DENSITY)
@@ -310,10 +330,21 @@ class Simulation:
             sph[cells] = rt.get("specific_heat", DEFAULT_SPECIFIC_HEAT)
         # ghost cells take the attached interior cell's rock, so that
         # harmonic face averages see interior properties
+        ghosts, interiors = [], []
         for b in mesh.boundaries:
             interior = mesh.face_cells[b.faces, 0]
             for a in (perm, wetk, dryk, poro, dens, sph):
                 a[b.cells] = a[interior]
+            ghosts.append(np.asarray(b.cells, np.int64))
+            interiors.append(np.asarray(interior, np.int64))
+        self._rock_ghost_map = tuple(
+            torch.as_tensor(np.concatenate(a) if a else np.zeros(0, np.int64),
+                            device=self.device)
+            for a in (ghosts, interiors))
+        self._rock_controls_dev = [
+            (kind, torch.as_tensor(cells, device=self.device), table)
+            for kind, cells, table in self.rock_controls
+        ]
         return RockState(
             permeability=self._f64(perm),
             wet_conductivity=self._f64(wetk),
@@ -322,6 +353,30 @@ class Simulation:
             density=self._f64(dens),
             specific_heat=self._f64(sph),
         )
+
+    def rock_for(self, t: float) -> RockState:
+        """Rock properties at time t with the table-driven rock controls
+        applied (the pre-try-timestep hook, flow_simulation.F90:2050-2094):
+        new tensors on the simulation's device, the ghost cells following
+        their interior cells; self.rock itself where there are no
+        controls."""
+        if not self.rock_controls:
+            return self.rock
+        perm = self.rock.permeability.clone()
+        poro = self.rock.porosity.clone()
+        t_dev = poro.new_full((), float(t))
+        for kind, cells, table in self._rock_controls_dev:
+            val = table(t_dev)  # [dim]
+            if kind == "permeability":
+                if val.shape[0] < 3:
+                    val = torch.cat([val, val[-1:].expand(3 - val.shape[0])])
+                perm[cells] = val
+            else:
+                poro[cells] = val[0]
+        g, i = self._rock_ghost_map
+        perm[g] = perm[i]
+        poro[g] = poro[i]
+        return self.rock._replace(permeability=perm, porosity=poro)
 
     def _setup_initial(self, config, mesh: Mesh):
         """Initial scaled primaries and regions (initial.F90: constant
@@ -380,7 +435,41 @@ class Simulation:
             for name in self.eos.required_output_fluid_fields:
                 ds = f"fluid_{name}" if f"fluid_{name}" in cf else name
                 fields[name] = np.asarray(cf[ds][index])[inv]
+            self._restart_tracer_fields = {}
+            if self.tracers is not None:
+                for nm in self.tracers.names:
+                    ds = f"tracer_{nm}"
+                    if ds in cf:
+                        self._restart_tracer_fields[nm] = np.asarray(
+                            cf[ds][index])[inv]
         return self.eos.primary_from_output_fields(fields)
+
+    def _setup_initial_tracer(self, config, mesh: Mesh) -> torch.Tensor:
+        """[N, nt] initial tracer mass fractions (initial.tracer: one
+        value, one per tracer or per cell; a restart file's tracer
+        fields), with the boundary values in the ghost rows."""
+        nt = self.tracers.num_tracers
+        ni = mesh.num_interior_cells
+        x = np.zeros((mesh.num_cells, nt))
+        ic = config.get("initial", {}) or {}
+        tr = ic.get("tracer")
+        if tr is not None:
+            arr = np.asarray(tr, dtype=np.float64)
+            if arr.ndim == 0:
+                x[:ni] = float(arr)
+            elif arr.ndim == 1 and arr.shape[0] == nt:
+                x[:ni] = arr
+            else:
+                x[:ni] = arr.reshape(ni, -1)
+        for nm, vals in getattr(self, "_restart_tracer_fields", {}).items():
+            x[:ni, self.tracers.names.index(nm)] = vals
+        for b in mesh.boundaries:
+            if b.tracer is not None:
+                bt = b.tracer
+                if bt.shape[0] != nt:
+                    bt = np.full(nt, bt[0])
+                x[b.cells] = bt
+        return self._f64(x)
 
     # ------------------------------------------------------------------
 
@@ -427,6 +516,54 @@ class Simulation:
             return res, fluid, lhs_new, fluxes
 
         return step
+
+    def make_tracer_step_fn(self):
+        """The auxiliary tracer solve of one accepted try
+        (timestepper.F90:458-557 linear set-up, aux solve :2347-2356).
+
+        tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
+        t0, t1, dt, dt_last, first, use_bdf2) -> tracer.TracerResult;
+        times are Python numbers. The tracer solve sees the static rock,
+        as in the JAX package."""
+        from waiwera_tpu_torch.sim import tracer as tracer_mod
+
+        tracers = self.tracers
+        network = self.sources
+        npv = self.eos.num_primary_variables
+        pidx = torch.as_tensor(tracers.phase_index, device=self.device)
+
+        def tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
+                        t0, t1, dt, dt_last, first, use_bdf2):
+            rate = cells = frac = inj = None
+            if network is not None and network.num_sources > 0:
+                rate, _ = network.flows(fluid, t0, t1)
+                cells = network.arrays.cell
+                frac = fluid.phase_flow_fractions()[cells][:, pidx]
+                inj = network.tracer_injection(t0, t1, like=rate)
+            dt = float(dt)
+            r = dt / float(dt_last)
+            if (not use_bdf2) or float(first) > 0.5:
+                c_al, dt_eff = 1.0, dt
+                b_hist = al_last * x_last
+            else:
+                c_al, dt_eff = 1.0 + 2.0 * r, dt * (r + 1.0)
+                b_hist = ((r + 1.0) ** 2 * al_last * x_last
+                          - r * r * al_last2 * x_last2)
+            return tracer_mod.solve(
+                tracers, self.mesh_dev, fluid, self.rock, fluxes, npv, c_al,
+                dt_eff, b_hist, cells, rate, frac, inj, self.tracer0,
+            )
+
+        return tracer_step
+
+    def initial_tracer_state(self):
+        """(x0, al0): the initial tracers and their balance coefficients
+        at the initial fluid state."""
+        from waiwera_tpu_torch.sim import tracer as tracer_mod
+
+        fluid0, _ = self.initial_fluid()
+        return self.tracer0, tracer_mod.balance_coefs(self.tracers, fluid0,
+                                                      self.rock)
 
     def lhs_at(self, y, region):
         fluid, _, err = self.system.derived_state(y, region, self.rock)

@@ -11,11 +11,15 @@ transitions on the simulation's device); times and step sizes are
 Python floats, in f64 and in the JAX package's order of operations, so
 that the two packages take the same tries.
 
+After each converged try the tracers' auxiliary linear problem is
+solved (sim/tracer.py); with rock controls each try runs on the rock at
+its end time (Simulation.rock_for).
+
 The loop itself crosses to the host once per try (the residual norm and
 its location for the log), once per accepted step under the `change`
 monitor, and once per written output field; Timestepper.stats counts
-these beside the step function's own syncs. Tracers and rock controls
-wait for ROADMAP A13 and raise.
+these beside the step function's own syncs, and the tracer solves'
+syncs, iterations and seconds.
 """
 
 from __future__ import annotations
@@ -251,15 +255,13 @@ class Timestepper:
             self.max_tries = 1
             self.adapt_on_input = False
 
-        if getattr(sim, "tracers", None) is not None:
-            raise NotImplementedError(
-                "tracers are not ported yet (ROADMAP A13)"
-            )
-        if getattr(sim, "rock_controls", None):
-            raise NotImplementedError(
-                "rock controls are not ported yet (ROADMAP A13)"
-            )
         self.step_fn = sim.make_step_fn(self.newton_params, self.method)
+        self.tracer_step_fn = (
+            sim.make_tracer_step_fn()
+            if getattr(sim, "tracers", None) is not None
+            and not self.steady_state
+            else None
+        )
 
         # runtime state
         self.taken = 0
@@ -271,12 +273,15 @@ class Timestepper:
         """Counts of one run: tries, Newton and Krylov iterations,
         Krylov matvecs, host syncs inside the step function (`step`)
         and added by this loop (`timestepper`), seconds spent writing
-        output, and the host-clock seconds of each accepted step, its
-        refused tries included."""
+        output, the host-clock seconds of each accepted step, its
+        refused tries included, and of the tracer solves (`tracer_*`:
+        solves, GMRES iterations of each, host syncs, seconds)."""
         return {"tries": 0, "newton_iterations": 0, "linear_iterations": 0,
                 "matvecs": 0, "host_syncs_step": 0,
                 "host_syncs_timestepper": 0, "output_seconds": 0.0,
-                "step_seconds": []}
+                "step_seconds": [], "tracer_iterations": [],
+                "tracer_converged": [], "host_syncs_tracer": 0,
+                "tracer_seconds": 0.0}
 
     # ------------------------------------------------------------------
 
@@ -334,6 +339,11 @@ class Timestepper:
             else None
         )
         dt_last = self.sizes[0] if self.sizes[0] > 0 else 1.0
+        if self.tracer_step_fn is not None:
+            aux_x, aux_al = sim.initial_tracer_state()
+            aux_x2, aux_al2 = aux_x, aux_al
+        else:
+            aux_x = None
 
         self.taken = 0
         self.output_index = 0
@@ -368,7 +378,7 @@ class Timestepper:
             if flux_out:
                 flux_dev = (fluxes_carr if fluxes_carr is not None
                             else sim.initial_fluxes(y, region))
-            self._write_output(t, fluid, t, dt_last, flux_dev)
+            self._write_output(t, fluid, t, dt_last, flux_dev, aux_x)
 
         # fixed-size sequence state (timestepper.F90:1381-1453)
         fixed_index = 0
@@ -422,7 +432,13 @@ class Timestepper:
                         finished = True
 
                 step_kwargs = {}
-                if fluxes_carr is not None:
+                if getattr(self.sim, "rock_controls", None):
+                    # pre-try-timestep rock controls at the try's end
+                    # time (flow_simulation.F90:2040-2094); the carried
+                    # state was computed under the previous rock, so the
+                    # fast initial residual is skipped
+                    step_kwargs = dict(rock_in=self.sim.rock_for(t_try))
+                elif fluxes_carr is not None:
                     step_kwargs = dict(
                         fluid_last=fluid, fluxes_last=fluxes_carr
                     )
@@ -441,6 +457,27 @@ class Timestepper:
                 num_tries += 1
                 converged = bool(res.converged) and not bool(res.failed)
                 its = int(res.iterations)
+                tres = None
+                if converged and self.tracer_step_fn is not None:
+                    # auxiliary (tracer) linear solve of this try
+                    # (timestepper.F90:2347-2356); a failure retries the
+                    # step like a nonlinear failure
+                    tr_wall0 = _walltime.time()
+                    tres = self.tracer_step_fn(
+                        new_fluid, fluxes, aux_x, aux_al, aux_x2, aux_al2,
+                        t, t_try, dt, dt_last,
+                        1.0 if self.taken == 0 else 0.0,
+                        self.method == "bdf2",
+                    )
+                    stats_run["tracer_seconds"] += (_walltime.time()
+                                                    - tr_wall0)
+                    stats_run["tracer_iterations"].append(tres.iterations)
+                    stats_run["tracer_converged"].append(tres.converged)
+                    stats_run["host_syncs_tracer"] += tres.host_syncs
+                    if not tres.converged:
+                        log.write("warn", "tracer_solver", "not_converged",
+                                  iterations=int(tres.iterations))
+                        converged = False
                 max_residual, worst_cell, worst_equation = (
                     self._residual_report(res)
                 )
@@ -545,6 +582,9 @@ class Timestepper:
                 if fluxes_carr is not None:
                     fluxes_carr = fluxes
                 temperature = new_fluid.temperature
+                if tres is not None:
+                    aux_x2, aux_al2 = aux_x, aux_al
+                    aux_x, aux_al = tres.x, tres.al
                 if flux_out:
                     flux_dev = fluxes
                 since_output += 1
@@ -566,7 +606,7 @@ class Timestepper:
                     or since_output == self.output_frequency
                 ):
                     self._write_output(t, fluid, t - dt_last, dt_last,
-                                       flux_dev)
+                                       flux_dev, aux_x)
                     self._dump_jacobian(y, region, lhs, t, dt_last)
                     if since_output == self.output_frequency:
                         since_output = 0
@@ -589,7 +629,7 @@ class Timestepper:
             and self.output_final
             and since_output > 0
         ):
-            self._write_output(t, fluid, t, dt_last, flux_dev)
+            self._write_output(t, fluid, t, dt_last, flux_dev, aux_x)
             self._dump_jacobian(y, region, lhs, t, dt_last)
         log.write(
             "info",
@@ -603,6 +643,7 @@ class Timestepper:
         self.final_y = y
         self.final_region = region
         self.final_fluid = fluid
+        self.final_tracer = aux_x
         self.aborted = aborted
         return not aborted
 
@@ -692,18 +733,19 @@ class Timestepper:
                     accepted, next_stepsize = adapt(status, dt)
         return accepted, next_stepsize, adaptor_on, fixed_index
 
-    def _write_output(self, t, fluid, t0, dt, flux_dev):
-        """One output record at time t: the fluid fields, the source
-        fields over [t0, t0 + dt] and, where flux output is on, the face
-        fluxes brought into the host mesh's face order."""
+    def _write_output(self, t, fluid, t0, dt, flux_dev, aux_x=None):
+        """One output record at time t: the fluid fields, the tracers,
+        the source and network fields over [t0, t0 + dt] and, where flux
+        output is on, the face fluxes brought into the host mesh's face
+        order."""
         w0 = _walltime.time()
         flux_nat = None
         if flux_dev is not None:
             f2g = getattr(self.sim, "flux_to_global", None)
             flux_nat = f2g(flux_dev) if f2g is not None else flux_dev
         self.output.write(self.output_index, t, fluid,
-                          self._source_output(fluid, t0, dt),
-                          tracer=None, fluxes=flux_nat)
+                          self._source_output(fluid, t0, dt, aux_x),
+                          tracer=aux_x, fluxes=flux_nat)
         self.output_index += 1
         self.stats["output_seconds"] += _walltime.time() - w0
 
@@ -736,10 +778,11 @@ class Timestepper:
             ),
         }
 
-    def _source_output(self, fluid, t0, dt):
-        """Per-source output fields (flow_simulation.F90:2966-2981: the
-        source vector viewed into /source_fields). Source network
-        groups and reinjectors wait for ROADMAP A13."""
+    def _source_output(self, fluid, t0, dt, aux_x=None):
+        """Per-source, group and reinjector output fields
+        (flow_simulation.F90:2966-2981: the source, network_group and
+        network_reinject vectors viewed into /source_fields). The node
+        fields cross to the host in one transfer each."""
         if self.sim.sources is None:
             return None
         from waiwera_tpu_torch.sim.sources import source_flows
@@ -748,7 +791,8 @@ class Timestepper:
             return a.detach().cpu().numpy()
 
         net = self.sim.sources
-        src_f = self._source_field_config()["source"]
+        fields = self._source_field_config()
+        src_f = fields["source"]
         collect = {}
         rate, enthalpy = net.flows(fluid, t0, t0 + dt, collect=collect)
         qw, hw, qs, hs = collect.get(
@@ -787,4 +831,46 @@ class Timestepper:
             for k, c in enumerate(names):
                 if f"{c}_flow" in src_f:
                     out[f"source_{c}_flow"] = flow[:, k]
+        if aux_x is not None and self.sim.tracers is not None:
+            # tracer flows at sources (flow_simulation.F90
+            # source_update_tracer_flow): production carries the cell's
+            # tracer mass fraction by the tracer phase's flow fraction;
+            # injection the specified injection rate
+            tr = self.sim.tracers
+            cells = net.arrays.cell
+            pidx = tr._on(rate)[0]
+            frac = fluid.phase_flow_fractions()[cells][:, pidx]
+            q = rate[:, None]
+            inj = net.tracer_injection(t0, t0 + dt, like=rate)
+            out["source_tracer_flow"] = host(
+                torch.where(q < 0, aux_x[cells] * frac * q, inj))
+        # source network group and reinjector node fields
+        groups = collect.get("group", {})
+        if groups and getattr(net, "groups", None):
+            gf = fields["network_group"]
+            names = ("rate", "enthalpy", "water_rate", "water_enthalpy",
+                     "steam_rate", "steam_enthalpy")
+            vals = host(torch.stack([
+                torch.stack([nf.q, nf.h, nf.qw, nf.hw, nf.qs, nf.hs])
+                for nf in (groups[g.name] for g in net.groups)
+            ]))  # [groups, 6]
+            per = {nm: vals[:, k] for k, nm in enumerate(names)}
+            tot = np.abs(per["water_rate"]) + np.abs(per["steam_rate"])
+            per["steam_fraction"] = np.where(
+                tot > 0, np.abs(per["steam_rate"]) / np.where(tot > 0, tot,
+                                                              1.0), 0.0)
+            for nm in gf:
+                if nm in per:
+                    out["network_group_" + nm] = per[nm]
+        rein = collect.get("reinject", {})
+        if rein and getattr(net, "reinjectors", None):
+            rf = [nm for nm in fields["network_reinject"]
+                  if nm in rein[net.reinjectors[0].name]]
+            if rf:
+                vals = host(torch.stack([
+                    torch.stack([rein[r.name][nm] for nm in rf])
+                    for r in net.reinjectors
+                ]))  # [reinjectors, fields]
+                for k, nm in enumerate(rf):
+                    out["network_reinject_" + nm] = vals[:, k]
         return out

@@ -38,7 +38,7 @@ class NewtonParams(NamedTuple):
     linear_pc: str = "bjacobi"
     linear_rtol: float = 1e-5
     linear_max_iterations: int = 1000
-    linear_restart: int = 30  # gmres/lgmres subspace size (ROADMAP A14)
+    linear_restart: int = 30  # gmres subspace size
     # precision of the inner Krylov solve and of the Jacobian tangent
     # chain; the residual and the convergence tests stay f64
     linear_dtype: str = "float64"
@@ -163,6 +163,7 @@ def newton_solve(
             params.linear_method, mv, r.to(linear_dtype), precond=pc,
             rtol=params.linear_rtol,
             max_iterations=params.linear_max_iterations,
+            restart=params.linear_restart,
         )
         syncs += lin.host_syncs
         matvecs += lin.matvecs
