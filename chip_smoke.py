@@ -95,24 +95,52 @@ Phases (any failure raises and the exit code is nonzero):
    tracer-solve seconds per step, one synchronised flows(collect=) call,
    jacobian_parts with the network inside and host syncs per try. Then
    the same network at 5 x 4 x 3 on the card and on the CPU: the same
-   tries, y within rtol 2e-5, atol 2e-5, tracers within 1e-6 of max|x|.
+   tries, y within rtol 2e-5, atol 2e-5, tracers within 1e-6 of max|x|;
+10. models read from mesh files that the script writes, each JSON model
+   run through Simulation(config) + Timestepper with the kernel counts
+   set to 0 just before and read just after, and the set-up split into
+   file write, read, build_mesh, System and initial state: (a) phase 8
+   (a)'s default-EOS model on a layered triangulation (wedge_mesh) of the
+   flagship's plan area and depth, 128 x 64 squares in 2 triangles each,
+   32 layers of 40 m: 524,288 wedges, 1,048,576 unknowns, the plan's
+   triangles in reverse Cuthill-McKee order, from gmsh 4.1 binary, lgmres +
+   asm, the nonlinear monitor on, 3 steps; jacobian_fd_error at the
+   initial state (4 probes) must be below 1e-5 and the model must take
+   the ELL route (no kernel: launches 0); (b) the same construction at
+   48 x 32 x 16 written as exodus (NetCDF-3) and as gmsh 2.2 ASCII, which
+   must read to equal geometry (rtol 1e-12, face cells exactly), run from
+   the exodus file with bcgsl + asm; (c) phase 8 (c) "w"'s box from gmsh
+   4.1 ASCII, which must take the band route with dia_spmv_f64 launches
+   = Krylov matvecs, and phase 8 (c) "w"'s tries with y within rtol
+   2e-5; (d) a 5 x 4 x 3 box of 20 m cubes in 6 tetrahedra each (720
+   unknowns) with lgmres + lu and the monitor, on the card and on the
+   CPU: the same tries, y within rtol 2e-5. Every monitored run must
+   print one line per try and per Newton iteration. Then the ROADMAP C15
+   check: phase 8 (c) "w" and phase 9's production field at 48 x 32 x 32,
+   each twice in the default mode and twice under
+   torch.use_deterministic_algorithms, which must repeat their counts;
+   the fixed-order face scatter-sum against the index_adds it replaced;
+   and the bench's settled flagship step with the fixed-order sums and
+   with index_add in turn.
 
 Prints each bench section's wall time on its own line, then the model
 runs' times and counts, the bench's full JSON record, one JSON line
 {"kernels": [...]} (launches on the bench path, on the phase 7 model run,
-over phase 8's card runs and on phase 9's full-size run) and the card's nvidia-smi name and power
-limit; the last line is {"ok": true, "device": {...}}. Exits nonzero
+over phase 8's card runs, on phase 9's full-size run and over phase 10's
+card runs) and the card's nvidia-smi name and power limit; the last line is {"ok": true, "device": {...}}. Exits nonzero
 without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -128,8 +156,10 @@ from waiwera_tpu_torch.bench import (  # noqa: E402
 )
 
 __all__ = ["build_sim", "eos_model_config", "flagship_config",
-           "flagship_spacing", "make_step", "model_config", "model_run",
-           "run_steps"]
+           "flagship_spacing", "hex_box", "make_step", "mesh_file_config",
+           "model_config", "model_run", "plan_rcm_order", "run_steps",
+           "tet_box",
+           "wedge_mesh", "wedge_model_config", "write_exodus", "write_gmsh"]
 
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FLAGSHIP = (128, 64, 64)
@@ -384,12 +414,13 @@ def _saturation_temperature(p):
     return t.numpy()
 
 
-def eos_initial_state(kind, nx, ny, nz):
+def eos_initial_state(kind, nx, ny, nz, dz=EOS_DZ):
     """(primary [n, npv], region [n]) of the EOS model `kind`, cells in
-    the mesh's natural order (x fastest, the top layer last)."""
+    the mesh's natural order (x fastest, the top layer last), layers dz
+    thick."""
     st = EOS_STATES[kind]
-    depth = (nz - 1 - np.arange(nz) + 0.5) * EOS_DZ  # per layer, from top
-    p = st["p_top"] + st["density"] * 9.8 * (depth - 0.5 * EOS_DZ)
+    depth = (nz - 1 - np.arange(nz) + 0.5) * dz  # per layer, from top
+    p = st["p_top"] + st["density"] * 9.8 * (depth - 0.5 * dz)
     layer = np.repeat(np.arange(nz), nx * ny)
     i = np.tile(np.arange(nx), ny * nz)
     pc = p[layer]
@@ -593,6 +624,284 @@ def network_model_config(nx, ny, nz, steps=3, size=1.0e4):
     return cfg
 
 
+# phase 10: unstructured models read from mesh files. The meshes are made
+# here and written in the formats the port reads; the port itself has no
+# mesh writer, as the JAX package has none
+WEDGE_DX = 50.0  # plan squares, m
+WEDGE_DZ = 40.0  # layers, m
+# the flagship's plan area (6.4 km x 3.2 km) and depth (1.28 km):
+# 128 x 64 squares of 2 triangles, 32 layers = 524,288 wedges
+WEDGE_FIELD = (128, 64, 32)
+WEDGE_REDUCED = (48, 32, 16)  # 49,152 wedges, the bench's reduced count
+GMSH_TYPES = {"line": 1, "triangle": 2, "quad": 3, "tetra": 4,
+              "hexahedron": 5, "wedge": 6, "pyramid": 7}
+EXODUS_TYPES = {"triangle": "TRI3", "quad": "QUAD4", "tetra": "TETRA4",
+                "hexahedron": "HEX8", "wedge": "WEDGE6",
+                "pyramid": "PYRAMID5"}
+
+
+def plan_rcm_order(tris):
+    """Reverse Cuthill-McKee order of plan triangles [T, 3] over their
+    shared edges (scipy.sparse.csgraph): order[k] is the triangle that
+    takes in-layer number k."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    t = len(tris)
+    edges = np.sort(tris[:, [0, 1, 1, 2, 2, 0]].reshape(-1, 2), axis=1)
+    owner = np.repeat(np.arange(t), 3)
+    key = edges[:, 0] * (int(tris.max()) + 1) + edges[:, 1]
+    srt = np.argsort(key, kind="stable")
+    same = key[srt][1:] == key[srt][:-1]
+    a, b = owner[srt][:-1][same], owner[srt][1:][same]
+    adj = sp.coo_matrix((np.ones(2 * len(a)), (np.r_[a, b], np.r_[b, a])),
+                        shape=(t, t)).tocsr()
+    return np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True),
+                      np.int64)
+
+
+def wedge_mesh(nx, ny, nz, dx=WEDGE_DX, dz=WEDGE_DZ, order="rcm"):
+    """A layered triangulation: nx x ny plan squares of side dx, each
+    split into 2 triangles with the diagonal alternating square by
+    square, extruded over nz layers of dz (the top at z = 0). Cells are
+    numbered layer by layer from the bottom; within a layer the plan
+    triangles come in reverse Cuthill-McKee order (order "rcm", a
+    bandwidth-reducing renumbering that keeps neighbours close but gives
+    no constant-offset bands) or in square order ("squares", which the
+    band route takes). Returns (vertices [nv, 3], wedges [2 nx ny nz, 6],
+    pos) with pos[t] the in-layer number of plan triangle
+    t = 2 (i + nx j) + h (h = 0, 1)."""
+    nvx, nvy = nx + 1, ny + 1
+    X, Y = np.meshgrid(np.arange(nvx) * dx, np.arange(nvy) * dx,
+                       indexing="xy")
+    plan = np.stack([X.ravel(), Y.ravel()], axis=1)
+    z = -nz * dz + np.arange(nz + 1) * dz
+    verts = np.concatenate([np.column_stack([plan, np.full(len(plan), zk)])
+                            for zk in z])
+    j, i = (a.ravel() for a in np.meshgrid(np.arange(ny), np.arange(nx),
+                                           indexing="ij"))
+    v00, v10 = j * nvx + i, j * nvx + i + 1
+    v01, v11 = v00 + nvx, v10 + nvx
+    a = ((i + j) % 2 == 0)[:, None]
+    t0 = np.where(a, np.stack([v00, v10, v11], 1), np.stack([v00, v10, v01], 1))
+    t1 = np.where(a, np.stack([v00, v11, v01], 1), np.stack([v10, v11, v01], 1))
+    tris = np.stack([t0, t1], axis=1).reshape(-1, 3)
+    if order == "rcm":
+        perm = plan_rcm_order(tris)
+    elif order == "squares":
+        perm = np.arange(len(tris))
+    else:
+        raise ValueError(f"unknown plan order {order!r}")
+    pos = np.empty_like(perm)
+    pos[perm] = np.arange(len(perm))
+    layer = tris[perm]
+    nplan = nvx * nvy
+    wedges = np.concatenate([np.column_stack([layer + k * nplan,
+                                              layer + (k + 1) * nplan])
+                             for k in range(nz)])
+    return verts, wedges.astype(np.int64), pos
+
+
+def tet_box(nx, ny, nz, h=1.0):
+    """An nx x ny x nz box of cubes of side h (the top at z = 0), each
+    cube split into the 6 tetrahedra along its main diagonal (the same
+    split in every cube, so faces match). Cells are numbered cube by
+    cube (x fastest, the top layer last), 6 per cube. Returns (vertices,
+    tetrahedra [6 nx ny nz, 4], top) with top the tetrahedra that have a
+    face on the top of the box."""
+    nvx, nvy = nx + 1, ny + 1
+    kk, jj, ii = np.meshgrid(np.arange(nz + 1), np.arange(nvy),
+                             np.arange(nvx), indexing="ij")
+    verts = np.stack([ii.ravel() * h, jj.ravel() * h,
+                      (kk.ravel() - nz) * h], axis=1).astype(np.float64)
+    k, j, i = (a.ravel() for a in np.meshgrid(
+        np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij"))
+
+    def vid(a, b, c):
+        return ((k + c) * nvy + (j + b)) * nvx + (i + a)
+
+    perms = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1),
+             (2, 1, 0))
+    tets = []
+    for p in perms:
+        step = [np.zeros(3, int)]
+        for axis in p[:2]:
+            e = step[-1].copy()
+            e[axis] = 1
+            step.append(e)
+        tets.append(np.stack([vid(*s) for s in step] + [vid(1, 1, 1)], 1))
+    tets = np.stack(tets, axis=1).reshape(-1, 4)
+    ncube = nx * ny * nz
+    top = [6 * c + q for c in range(ncube - nx * ny, ncube)
+           for q, p in enumerate(perms) if p[0] == 2]
+    return verts, tets.astype(np.int64), top
+
+
+def hex_box(nx, ny, nz, widths):
+    """The vertices and hexahedra of rectangular_mesh's 3-D box (cell
+    widths (dx, dy, dz), origin 0), cells in natural order."""
+    edges = [np.concatenate([[0.0], np.cumsum(w)]) for w in widths]
+    nvx, nvy = nx + 1, ny + 1
+    kk, jj, ii = np.meshgrid(np.arange(nz + 1), np.arange(nvy),
+                             np.arange(nvx), indexing="ij")
+    verts = np.stack([edges[0][ii.ravel()], edges[1][jj.ravel()],
+                      edges[2][kk.ravel()]], axis=1)
+    k, j, i = (a.ravel() for a in np.meshgrid(
+        np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij"))
+
+    def vid(a, b, c):
+        return ((k + c) * nvy + (j + b)) * nvx + (i + a)
+
+    conn = np.stack([vid(0, 0, 0), vid(1, 0, 0), vid(1, 1, 0), vid(0, 1, 0),
+                     vid(0, 0, 1), vid(1, 0, 1), vid(1, 1, 1), vid(0, 1, 1)],
+                    axis=1)
+    return verts, conn.astype(np.int64)
+
+
+def write_gmsh(path, verts, blocks, version="4.1", binary=True):
+    """Write vertices [nv, 2 or 3] and cell blocks [(type, connectivity
+    0-based)] as a gmsh file: format 2.2 or 4.1, ASCII or binary
+    (little-endian; 4.1 with 8-byte size_t). Node tags are the vertex
+    numbers + 1, element tags count from 1 in block order."""
+    v3 = np.zeros((len(verts), 3))
+    v3[:, : verts.shape[1]] = verts
+    nn = len(v3)
+    ntot = sum(len(c) for _, c in blocks)
+    dim = 3 if any(t in ("tetra", "hexahedron", "wedge", "pyramid")
+                   for t, _ in blocks) else 2
+    tags = np.arange(1, nn + 1)
+    out = [f"$MeshFormat\n{version} {int(binary)} 8\n".encode()]
+    if binary:
+        out.append(np.int32(1).tobytes() + b"\n")
+    out.append(b"$EndMeshFormat\n$Nodes\n")
+
+    def text(rows, fmt):
+        return ("\n".join(fmt % tuple(r) for r in rows.tolist()) + "\n"
+                ).encode()
+
+    if version == "2.2":
+        out.append(f"{nn}\n".encode())
+        if binary:
+            rec = np.zeros(nn, np.dtype([("id", "<i4"), ("x", "<f8", 3)]))
+            rec["id"], rec["x"] = tags, v3
+            out += [rec.tobytes(), b"\n"]
+        else:
+            out.append(text(np.column_stack([tags, v3]).astype(object),
+                            "%d %.17g %.17g %.17g"))
+        out.append(f"$EndNodes\n$Elements\n{ntot}\n".encode())
+        first = 1
+        for t, c in blocks:
+            ids = np.arange(first, first + len(c))
+            first += len(c)
+            if binary:
+                out.append(np.array([GMSH_TYPES[t], len(c), 2],
+                                    "<i4").tobytes())
+                rec = np.column_stack([ids, np.zeros((len(c), 2), int),
+                                       c + 1]).astype("<i4")
+                out.append(rec.tobytes())
+            else:
+                rec = np.column_stack([ids, np.full(len(c), GMSH_TYPES[t]),
+                                       np.full(len(c), 2),
+                                       np.zeros((len(c), 2), int), c + 1])
+                out.append(text(rec, " ".join(["%d"] * rec.shape[1])))
+        out.append((b"\n" if binary else b"") + b"$EndElements\n")
+    else:
+        if binary:
+            out += [np.array([1, nn, 1, nn], "<u8").tobytes(),
+                    np.array([dim, 1, 0], "<i4").tobytes(),
+                    np.array([nn], "<u8").tobytes(),
+                    tags.astype("<u8").tobytes(), v3.astype("<f8").tobytes()]
+        else:
+            out.append(f"1 {nn} 1 {nn}\n{dim} 1 0 {nn}\n".encode())
+            out.append(text(tags[:, None], "%d"))
+            out.append(text(v3.astype(object), "%.17g %.17g %.17g"))
+        out.append(b"$EndNodes\n$Elements\n")
+        if binary:
+            out.append(np.array([len(blocks), ntot, 1, ntot],
+                                "<u8").tobytes())
+        else:
+            out.append(f"{len(blocks)} {ntot} 1 {ntot}\n".encode())
+        first = 1
+        for t, c in blocks:
+            rec = np.column_stack([np.arange(first, first + len(c)), c + 1])
+            first += len(c)
+            if binary:
+                out += [np.array([dim, 1, GMSH_TYPES[t]], "<i4").tobytes(),
+                        np.array([len(c)], "<u8").tobytes(),
+                        rec.astype("<u8").tobytes()]
+            else:
+                out.append(f"{dim} 1 {GMSH_TYPES[t]} {len(c)}\n".encode())
+                out.append(text(rec, " ".join(["%d"] * rec.shape[1])))
+        out.append(b"$EndElements\n")
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def write_exodus(path, verts, blocks):
+    """Write vertices and cell blocks as an ExodusII file in classic
+    NetCDF-3 (scipy.io.netcdf_file): coordx/coordy[/coordz] and one
+    1-based connect<i> per block with its elem_type."""
+    from scipy.io import netcdf_file
+
+    with netcdf_file(path, "w", version=2) as f:
+        nd = verts.shape[1]
+        f.createDimension("num_nodes", len(verts))
+        f.createDimension("num_dim", nd)
+        f.createDimension("num_elem", sum(len(c) for _, c in blocks))
+        f.createDimension("num_el_blk", len(blocks))
+        for name, col in zip(("coordx", "coordy", "coordz"), verts.T):
+            v = f.createVariable(name, "d", ("num_nodes",))
+            v[:] = col
+        for b, (t, c) in enumerate(blocks, start=1):
+            f.createDimension(f"num_el_in_blk{b}", len(c))
+            f.createDimension(f"num_nod_per_el{b}", c.shape[1])
+            v = f.createVariable(f"connect{b}", "i",
+                                 (f"num_el_in_blk{b}", f"num_nod_per_el{b}"))
+            v[:] = c + 1
+            v.elem_type = EXODUS_TYPES[t]
+
+
+def mesh_file_config(filename, ncol, nz, dz, producer, injector, top,
+                     steps=3, size=1.0e4, solver=None, monitor=False):
+    """Phase 8 (a)'s default-EOS model (eos_model_config("we")) on a mesh
+    read from `filename` whose cells come layer by layer, ncol per layer
+    of thickness dz, from the bottom: its per-layer initial state, the
+    `top` cells held by a boundary with normal [0, 0, 1], the producer
+    and injector cells given, and time.step.solver replaced by `solver`
+    (nonlinear.monitor set by `monitor`)."""
+    cfg = eos_model_config("we", ncol, 1, nz, steps=steps, size=size,
+                           solver=solver)
+    primary, region = eos_initial_state("we", ncol, 1, nz, dz=dz)
+    cfg["title"] = f"default-EOS model on {os.path.basename(filename)}"
+    cfg["mesh"] = {"filename": filename}
+    cfg["initial"] = {"primary": primary.tolist(), "region": region.tolist()}
+    cfg["boundaries"] = [{"primary": primary[-1].tolist(),
+                          "region": int(region[-1]),
+                          "faces": {"cells": [int(c) for c in top],
+                                    "normal": [0.0, 0.0, 1.0]}}]
+    cfg["source"][0]["cell"] = int(producer)
+    cfg["source"][1]["cell"] = int(injector)
+    if monitor:
+        step = cfg["time"]["step"]
+        step.setdefault("solver", {}).setdefault("nonlinear", {})[
+            "monitor"] = True
+    return cfg
+
+
+def wedge_model_config(filename, nx, ny, nz, pos, **kw):
+    """mesh_file_config on wedge_mesh(nx, ny, nz): the producer under the
+    top layer and the injector in the bottom layer, at phase 8 (a)'s plan
+    positions."""
+    ncol = 2 * nx * ny
+
+    def cell(i, j, layer):
+        return layer * ncol + pos[2 * (i + nx * j)]
+
+    return mesh_file_config(
+        filename, ncol, nz, WEDGE_DZ, cell(nx // 2, ny // 2, nz - 2),
+        cell(nx // 4, ny // 2, 0), range((nz - 1) * ncol, nz * ncol), **kw)
+
+
 class MemoryOutput:
     """Output of a run kept in memory, for a machine without h5py: the
     write signature of sim/output.py HDF5Output; each record keeps the
@@ -711,8 +1020,8 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
     st = ts.stats
     syncs = st["host_syncs_step"] + st["host_syncs_timestepper"]
     refused = sum(not ok for _, ok in ts.tried)
-    reductions = len([ln for ln in open(log_fn)
-                      if "[warn, timestep, reduction" in ln])
+    with open(log_fn) as f:
+        reductions = sum("[warn, timestep, reduction" in ln for ln in f)
     log(f"{name} through {entry}: wall {wall:.2f} s, run loop "
         f"{sum(st['step_seconds']):.2f} s, per accepted step "
         f"{[round(x, 3) for x in st['step_seconds']]} s, accepted sizes "
@@ -841,9 +1150,11 @@ def eos_model_run(workdir, label, kind, size, steps, solver, counters,
 def eos_phase(workdir, counters, log=log):
     """Phase 8: runs (a)-(c) of eos_runs() on the card, then the 5 x 4 x 3
     default-EOS model on the card and on the CPU (d). Returns (records,
-    launches summed over the phase's card runs)."""
+    launches summed over the phase's card runs, run (c) "w"'s tries and
+    final state on the host, which phase 10 (c) is held to)."""
     records = []
     total = {k: 0 for k in counters}
+    w_run = None
     for label, kind, size, steps, solver in eos_runs():
         ts, counts, rec = eos_model_run(workdir, label, kind, size, steps,
                                         solver, counters, log)
@@ -856,6 +1167,8 @@ def eos_phase(workdir, counters, log=log):
         records.append(rec)
         for k, n in counts.items():
             total[k] += n
+        if kind == "w":
+            w_run = (list(ts.tried), ts.final_y.cpu())
         del ts
         torch.cuda.empty_cache()
     # (d) the small default-EOS model on the card and on the CPU
@@ -888,7 +1201,7 @@ def eos_phase(workdir, counters, log=log):
                                atol=2e-5)
     log(f"phase 8 run (d): {len(card.tried)} tries and {card.taken} steps "
         "agree between the card and the CPU")
-    return records, total
+    return records, total, w_run
 
 
 def _sync(device):
@@ -1038,6 +1351,499 @@ def network_phase(workdir, counters, log=log):
     return rec, counts
 
 
+# phase 10: the solvers of each run
+LGMRES_ASM = {"linear": {"type": "lgmres", "preconditioner": {"type": "asm"}}}
+BCGSL_ASM = {"linear": {"type": "bcgsl", "preconditioner": {"type": "asm"}}}
+LGMRES_LU = {"linear": {"type": "lgmres", "preconditioner": {"type": "lu"}}}
+# 5 x 4 x 3 cubes of 6 tetrahedra each: 720 unknowns under we. The cubes
+# are 20 m (the flagship's layer thickness): in 1 m cubes phase 8 (a)'s
+# 20 kg/s injector refuses 6 of the first 9 tries
+TET_BOX = (5, 4, 3)
+TET_SIDE = 20.0
+
+
+class LineCount:
+    """A text stream that passes everything on to `out` and counts the
+    lines that start with `prefix` (the nonlinear monitor's reports)."""
+
+    def __init__(self, out, prefix="newton it "):
+        self.out, self.prefix = out, prefix
+        self.count = 0
+        self._line = ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._line += text
+        *done, self._line = self._line.split("\n")
+        self.count += sum(ln.startswith(self.prefix) for ln in done)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def timed_calls(targets, sink):
+    """Wrap each (owner, attribute) callable so that each call adds its
+    seconds (host clock, the card synchronised) to sink[attribute];
+    restored on exit."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def timed(fn, name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                sink[name] = sink.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    for owner, name, fn in saved:
+        setattr(owner, name, timed(fn, name))
+    try:
+        yield sink
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def route(system):
+    """The linear operator's route of a System: band, hybrid or ell."""
+    if system.dia is not None:
+        return "band"
+    return "hybrid" if system.hybrid is not None else "ell"
+
+
+def mesh_file_run(workdir, label, cfg, counters, write_s, fd=False,
+                  device=None, log=log):
+    """One run of phase 10: the JSON model `cfg` (its mesh a file) through
+    the port's entry points with the kernel counts set to 0 just before
+    and read just after, the set-up split by timed calls, the monitor's
+    lines counted and, with fd, jacobian_fd_error at the initial state
+    (4 probes) before the run. Returns (Timestepper, record)."""
+    from waiwera_tpu_torch.mesh import exodus, gmsh
+    from waiwera_tpu_torch.sim import simulation
+    from waiwera_tpu_torch.solver.fdcheck import jacobian_fd_error
+    from waiwera_tpu_torch.solver.system import MethodCoeffs
+
+    if cfg["mesh"]["filename"].endswith(".exo"):
+        reader, read_name = exodus, "read_exodus"
+    else:
+        reader, read_name = gmsh, "read_gmsh"
+    fd_out = {}
+
+    def hook(sim):
+        if fd:
+            _sync(sim.device)
+            t0 = time.perf_counter()
+            size = cfg["time"]["step"]["size"]
+            lhs, _, _ = sim.lhs_at(sim.y0, sim.region0)
+            coeffs = MethodCoeffs(c_lhs=1.0, dt_eff=size, const=-lhs)
+            fd_out["error"] = jacobian_fd_error(
+                sim.system, sim.y0, sim.region0, sim.rock, coeffs, 0.0, size,
+                num_probes=4)
+            _sync(sim.device)
+            fd_out["s"] = time.perf_counter() - t0
+
+    split = {}
+    out = LineCount(sys.stdout)
+    steps = cfg["time"]["step"]["maximum"]["number"]
+    for c in counters.values():
+        c.count = 0
+    with timed_calls([(reader, read_name), (reader, "build_mesh"),
+                      (simulation, "System"),
+                      (simulation.Simulation, "__init__")], split), \
+            contextlib.redirect_stdout(out):
+        ts, _, wall, entry = model_run(
+            workdir, None, steps=steps, device=device, use_h5=False,
+            log=log, checkpoint=None, config=cfg,
+            name=f"mesh_file_{label}_{device or 'card'}", sim_hook=hook)
+    counts = {k: c.count for k, c in counters.items()}
+    st = ts.stats
+    sysm = ts.sim.system
+    rec = {
+        "run": label, "device": str(ts.sim.device),
+        "mesh_file": os.path.basename(cfg["mesh"]["filename"]),
+        "route": route(sysm), "cells": ts.sim.mesh.num_interior_cells,
+        "unknowns": ts.sim.mesh.num_interior_cells * sysm.npv,
+        "linear": ts.newton_params.linear_method,
+        "preconditioner": ts.newton_params.linear_pc,
+        "setup_s": {
+            "file_write": write_s,
+            "read": split[read_name] - split["build_mesh"],
+            "build_mesh": split["build_mesh"],
+            "system": split["System"],
+            "initial_state": split["__init__"] - split[read_name]
+            - split["System"],
+        },
+        "wall_s": wall - fd_out.get("s", 0.0),
+        "run_loop_s": sum(st["step_seconds"]), "step_s": st["step_seconds"],
+        "tries": st["tries"], "refused": sum(not ok for _, ok in ts.tried),
+        "steps": ts.taken, "newton": st["newton_iterations"],
+        "krylov": st["linear_iterations"], "matvecs": st["matvecs"],
+        "host_syncs_per_try": (st["host_syncs_step"]
+                               + st["host_syncs_timestepper"]) / st["tries"],
+        "fd_error": fd_out.get("error"), "fd_s": fd_out.get("s"),
+        "monitor_lines": out.count,
+        "dia_spmv_f64_launches": counts["dia_spmv_f64"], "launches": counts,
+    }
+    if ts.newton_params.monitor and out.count != st["tries"] + \
+            st["newton_iterations"]:
+        raise RuntimeError(f"phase 10 ({label}): {out.count} monitor lines "
+                           f"for {st['tries']} tries and "
+                           f"{st['newton_iterations']} Newton iterations")
+    kernel = "dia_spmv_f64"
+    if device is not None:
+        pass  # no kernel off the card
+    elif rec["route"] == "band":
+        if counts[kernel] <= 0 or counts[kernel] != st["matvecs"]:
+            raise RuntimeError(f"phase 10 ({label}): {kernel} launches "
+                               f"{counts[kernel]} != Krylov matvecs "
+                               f"{st['matvecs']}")
+    elif any(counts.values()):
+        raise RuntimeError(f"phase 10 ({label}) on the {rec['route']} "
+                           f"route launched {counts}")
+    log(f"phase 10 run ({label}) {json.dumps(rec)}")
+    return ts, rec
+
+
+def same_meshes(a, b):
+    """Raise unless two meshes agree: every floating field at rtol 1e-12
+    (atol 1e-12 of its largest entry), face_cells and the other integer
+    fields exactly."""
+    for name in ("cell_centroid", "cell_volume", "face_area", "face_normal",
+                 "face_centroid", "face_distance", "face_distance12",
+                 "face_gravity_normal", "exterior_face_centroid",
+                 "exterior_face_normal", "exterior_face_area"):
+        x, y = getattr(a, name), getattr(b, name)
+        np.testing.assert_allclose(x, y, rtol=1e-12,
+                                   atol=1e-12 * np.abs(y).max(),
+                                   err_msg=name)
+    for name in ("face_cells", "face_permeability_direction",
+                 "exterior_face_cell", "is_ghost"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                      err_msg=name)
+
+
+def same_run(a, b, what, rtol=2e-5):
+    """Raise unless two runs, each (tries, final state), took the same
+    tries (sizes to rtol 1e-12) and reached final states within rtol,
+    atol `rtol`."""
+    if [ok for _, ok in a[0]] != [ok for _, ok in b[0]]:
+        raise RuntimeError(f"{what}: tries differ: {a[0]} {b[0]}")
+    np.testing.assert_allclose([d for d, _ in a[0]], [d for d, _ in b[0]],
+                               rtol=1e-12)
+    torch.testing.assert_close(a[1].cpu(), b[1].cpu(), rtol=rtol, atol=rtol)
+
+
+def mesh_file_phase(workdir, counters, w_run, log=log):
+    """Phase 10: models read from mesh files. (a) the wedge field at
+    WEDGE_FIELD from gmsh 4.1 binary, lgmres + asm, monitor on, with the
+    Jacobian's finite-difference check first; (b) the same construction
+    at WEDGE_REDUCED written as exodus (NetCDF-3) and gmsh 2.2 ASCII,
+    which read to equal geometry, run from the exodus file with bcgsl +
+    asm; (c) phase 8 (c) "w"'s box from gmsh 4.1 ASCII, held to that run
+    (w_run: its tries and final state); (d) the tetrahedral TET_BOX with
+    lgmres + lu, monitor on, on the card and on the CPU. Returns
+    (records, launches summed over the card runs)."""
+    from waiwera_tpu_torch.bench import REDUCED
+    from waiwera_tpu_torch.mesh.exodus import read_exodus
+    from waiwera_tpu_torch.mesh.gmsh import read_gmsh
+
+    records, total = [], {k: 0 for k in counters}
+
+    def add(rec):
+        records.append(rec)
+        for k, n in rec["launches"].items():
+            total[k] += n
+
+    # (a) the wedge field at full size
+    nx, ny, nz = WEDGE_FIELD
+    verts, wedges, pos = wedge_mesh(nx, ny, nz)
+    path = os.path.join(workdir, "wedge_field.msh")
+    t0 = time.perf_counter()
+    write_gmsh(path, verts, [("wedge", wedges)], version="4.1", binary=True)
+    write_s = time.perf_counter() - t0
+    cfg = wedge_model_config(path, nx, ny, nz, pos, steps=3,
+                             solver=LGMRES_ASM, monitor=True)
+    ts, rec = mesh_file_run(workdir, "a", cfg, counters, write_s, fd=True,
+                            log=log)
+    rec["file_bytes"] = os.path.getsize(path)
+    if rec["route"] != "ell" or ts.sim.system.bands is not None:
+        raise RuntimeError(f"phase 10 (a) took the {rec['route']} route")
+    if not rec["fd_error"] < 1e-5:
+        raise RuntimeError(f"phase 10 (a): fd error {rec['fd_error']}")
+    if rec["unknowns"] != 2 * 2 * nx * ny * nz:
+        raise RuntimeError(f"phase 10 (a): {rec['unknowns']} unknowns")
+    add(rec)
+    del ts, verts, wedges
+    torch.cuda.empty_cache()
+
+    # (b) the reduced wedge field from exodus, and the same cells from
+    # gmsh 2.2 ASCII
+    nx, ny, nz = WEDGE_REDUCED
+    verts, wedges, pos = wedge_mesh(nx, ny, nz)
+    exo = os.path.join(workdir, "wedge_reduced.exo")
+    msh = os.path.join(workdir, "wedge_reduced.msh")
+    t0 = time.perf_counter()
+    write_exodus(exo, verts, [("wedge", wedges)])
+    write_s = time.perf_counter() - t0
+    write_gmsh(msh, verts, [("wedge", wedges)], version="2.2", binary=False)
+    same_meshes(read_exodus(exo), read_gmsh(msh))
+    log("phase 10 (b): the exodus and gmsh 2.2 ASCII files read to equal "
+        "geometry")
+    cfg = wedge_model_config(exo, nx, ny, nz, pos, steps=3, solver=BCGSL_ASM)
+    ts, rec = mesh_file_run(workdir, "b", cfg, counters, write_s, log=log)
+    if rec["route"] != "ell":
+        raise RuntimeError(f"phase 10 (b) took the {rec['route']} route")
+    add(rec)
+    del ts
+
+    # (c) phase 8 (c) "w"'s box from a gmsh 4.1 ASCII file
+    (dx, dy, dz), _ = flagship_spacing(*REDUCED)
+    verts, hexes = hex_box(*REDUCED, (dx, dy, dz))
+    box = os.path.join(workdir, "box_w.msh")
+    t0 = time.perf_counter()
+    write_gmsh(box, verts, [("hexahedron", hexes)], version="4.1",
+               binary=False)
+    write_s = time.perf_counter() - t0
+    cfg = eos_model_config("w", *REDUCED, steps=3)
+    cfg["mesh"] = {"filename": box}
+    ts, rec = mesh_file_run(workdir, "c", cfg, counters, write_s, log=log)
+    if rec["route"] != "band":
+        raise RuntimeError(f"phase 10 (c) took the {rec['route']} route")
+    same_run((ts.tried, ts.final_y), w_run,
+             "phase 10 (c) against phase 8 (c) w")
+    add(rec)
+    del ts
+
+    # (d) the tetrahedral box with lgmres + lu on the card and the CPU
+    verts, tets, top = tet_box(*TET_BOX, h=TET_SIDE)
+    tet = os.path.join(workdir, "tet_box.msh")
+    t0 = time.perf_counter()
+    write_gmsh(tet, verts, [("tetra", tets)], version="4.1", binary=True)
+    write_s = time.perf_counter() - t0
+    nx, ny, nz = TET_BOX
+    ncol = 6 * nx * ny
+
+    def cell(i, j, k, q=0):
+        return 6 * (i + nx * (j + ny * k)) + q
+
+    cfg = mesh_file_config(tet, ncol, nz, TET_SIDE,
+                           cell(nx // 2, ny // 2, nz - 2),
+                           cell(nx // 4, ny // 2, 0), top, steps=3,
+                           solver=LGMRES_LU, monitor=True)
+    pair = []
+    for dev in (None, "cpu"):
+        ts, rec = mesh_file_run(workdir, "d", cfg, counters, write_s,
+                                device=dev, log=log)
+        if dev is None:
+            add(rec)
+        else:
+            records.append(rec)
+        pair.append(ts)
+    same_run(*[(p.tried, p.final_y) for p in pair],
+             "phase 10 (d) card against CPU")
+    log(f"phase 10 (d): {len(pair[0].tried)} tries and {pair[0].taken} "
+        "steps agree between the card and the CPU")
+    return records, total
+
+
+def scatter_cost(reps=10, k=20, log=log):
+    """ROADMAP C15: the fixed-order scatter-sum of the flagship box's
+    faces (no boundary) against the two index_adds it replaced, ms per
+    call on the card (host clock over k synchronised calls, best of
+    reps): rows [N, 3] f64 (the residual's inflows) and element-major
+    [9, N] f32 (the f32 Jacobian's diagonal), with the largest
+    difference of the two sums."""
+    from waiwera_tpu_torch.mesh.device import mesh_arrays
+    from waiwera_tpu_torch.mesh.rect import rectangular_mesh
+
+    widths, origin = flagship_spacing(*FLAGSHIP)
+    m = mesh_arrays(rectangular_mesh(*widths, origin=origin), "cuda")
+    cl, cr = m.face_cells[:, 0], m.face_cells[:, 1]
+    nf, n = len(cl), m.num_cells
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def best_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(k):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / k * 1e3)
+        return best
+
+    rec = {"faces": nf, "cells": n}
+    for name, dim, rows, dtype in (("rows_f64", 0, 3, torch.float64),
+                                   ("element_major_f32", 1, 9,
+                                    torch.float32)):
+        shape = (2 * nf, rows) if dim == 0 else (rows, 2 * nf)
+        v = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+        base = torch.zeros((n, rows) if dim == 0 else (rows, n),
+                           device="cuda", dtype=dtype)
+
+        def old():
+            return base.index_add(dim, cl, v.narrow(dim, 0, nf)).index_add(
+                dim, cr, v.narrow(dim, nf, nf))
+
+        def new():
+            return m.face_sum.add(base, v, dim)
+
+        rec[name] = {"index_add_ms": best_ms(old),
+                     "segment_sum_ms": best_ms(new),
+                     "max_abs_diff": float((old() - new()).abs().max())}
+    log(f"C15 scatter cost {json.dumps(rec)}")
+    return rec
+
+
+@contextlib.contextmanager
+def scatter_mode(mode, calls=None):
+    """ROADMAP C15's A/B switch: inside, every SegmentSum.add sums with
+    one index_add over the same index (mode "index_add", the scatter the
+    fixed-order sums replaced; the faces took two then) or as shipped
+    ("segment_sum"); calls, where given, gets one entry per add, the
+    ops it dispatches as shipped (a cat, a pad and an index_select and
+    an add per slot)."""
+    from unittest import mock
+
+    from waiwera_tpu_torch.ops.segment import SegmentSum
+
+    shipped = SegmentSum.add
+    index_of = {}
+
+    def index(seg):
+        # the entry index per row, read back from the slot table once
+        key = id(seg)
+        if key not in index_of:
+            idx = torch.empty(seg.size, dtype=torch.int64,
+                              device=seg.slots[0].device)
+            rows = torch.arange(seg.num_rows, device=idx.device)
+            for slot in seg.slots:
+                real = slot < seg.size
+                idx[slot[real]] = rows[real]
+            index_of[key] = (seg, idx)
+        return index_of[key][1]
+
+    def add(seg, out, values, dim=0):
+        if calls is not None:
+            calls.append(2 + 2 * len(seg.slots))
+        if mode == "index_add":
+            return out.index_add(dim, index(seg), values)
+        return shipped(seg, out, values, dim)
+
+    with mock.patch.object(SegmentSum, "add", add):
+        yield
+
+
+def scatter_step_cost(pairs=12, size=FLAGSHIP, device=None, log=log):
+    """ROADMAP C15's cost on the bench's settled flagship step: the
+    settle protocol of bench.time_step, then `pairs` pairs of timed
+    steps from the settled state, the fixed-order sums ("segment_sum")
+    and index_add in turn (ABBA order, host clock to a synchronise, one
+    warm call of each first), with the medians and quartiles of each and
+    the SegmentSum.add calls and their ops in one step."""
+    from unittest import mock
+
+    from waiwera_tpu_torch import bench
+
+    dev = torch.device(device or "cuda")
+    sim = bench.build_sim(*size, device=dev)
+    step = bench.make_step(sim)
+    times = {"segment_sum": [], "index_add": []}
+    calls = []
+
+    def ab(run, device, reps):
+        for mode in times:
+            with scatter_mode(mode):
+                run()
+        with scatter_mode("segment_sum", calls):
+            run()
+        for k in range(pairs):
+            order = list(times) if k % 2 == 0 else list(times)[::-1]
+            for mode in order:
+                with scatter_mode(mode):
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    run()
+                    _sync(dev)
+                    times[mode].append(time.perf_counter() - t0)
+        return min(times["segment_sum"])
+
+    with mock.patch.object(bench, "timeit", ab):
+        bench.time_step(sim, step, reps=1)
+    rec = {"size": list(size), "pairs": pairs,
+           "dt_timed": bench.time_step.last_info["dt_timed"],
+           "segment_sum_adds_per_step": len(calls),
+           "segment_sum_ops_per_step": sum(calls)}
+    for mode, ts in times.items():
+        q1, med, q3 = statistics.quantiles(ts, n=4)
+        rec[mode] = {"median_s": statistics.median(ts), "q1_s": q1,
+                     "q3_s": q3, "s": ts}
+    rec["median_change"] = (rec["segment_sum"]["median_s"]
+                            / rec["index_add"]["median_s"] - 1.0)
+    log(f"C15 step cost {json.dumps(rec)}")
+    return rec
+
+
+def determinism_check(workdir, counters, runs=2, log=log):
+    """ROADMAP C15: phase 8 (c) "w" and the production field of phase 9
+    at 48 x 32 x 32 (its group sums, separators and tracer solves),
+    each `runs` times in the default mode and `runs` times under
+    torch.use_deterministic_algorithms(True, warn_only=True), with their
+    Krylov iterations, matvecs and wall; the ops that warn in the
+    deterministic mode are listed. Raises if the runs of one model differ
+    in tries, Newton or Krylov iterations, matvecs or tracer iterations.
+    Returns the records."""
+    from waiwera_tpu_torch.bench import REDUCED
+
+    records = []
+    for model, cfg in (("w", eos_model_config("w", *REDUCED, steps=3)),
+                       ("network", network_model_config(*REDUCED,
+                                                        steps=3))):
+        counts, first_y = set(), None
+        for mode in ["default"] * runs + ["deterministic"] * runs:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(mode == "deterministic",
+                                                   warn_only=True)
+                try:
+                    ts, _, wall, _ = model_run(
+                        workdir, REDUCED, steps=3, use_h5=False,
+                        log=lambda m: None, checkpoint=None, config=cfg,
+                        name=f"c15_{model}_{mode}_{len(records)}")
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            st = ts.stats
+            if first_y is None:
+                first_y = ts.final_y.clone()
+            rec = {"model": model, "mode": mode,
+                   "krylov": st["linear_iterations"],
+                   "matvecs": st["matvecs"],
+                   "newton": st["newton_iterations"], "tries": st["tries"],
+                   "tracer_iterations": st["tracer_iterations"],
+                   "max_abs_y_diff_to_first": float(
+                       (ts.final_y - first_y).abs().max()),
+                   "wall_s": wall, "run_loop_s": sum(st["step_seconds"]),
+                   "nondeterministic_ops": sorted({
+                       str(w.message)[:100] for w in seen
+                       if "does not have a deterministic" in str(w.message)})}
+            log(f"C15 run {json.dumps(rec)}")
+            records.append(rec)
+            counts.add((rec["tries"], rec["newton"], rec["krylov"],
+                        rec["matvecs"], tuple(rec["tracer_iterations"])))
+            del ts
+        if len(counts) != 1:
+            raise RuntimeError(f"C15: the runs of {model} differ: "
+                               f"{sorted(counts)}")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1182,7 +1988,7 @@ def main() -> int:
     # and curves through the port's entry points on the card
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
-        eos_records, eos_counts = eos_phase(workdir, counters)
+        eos_records, eos_counts, w_run = eos_phase(workdir, counters)
     jac_s = {f"{r['run']} {r['eos']}": round(r["jacobian_parts_s"], 4)
              for r in eos_records}
     log(f"phase 8 (EOS models) {time.perf_counter() - t0:.2f} s; launches "
@@ -1197,6 +2003,22 @@ def main() -> int:
         net_record, net_counts = network_phase(workdir, counters)
     log(f"phase 9 (production field) {time.perf_counter() - t0:.2f} s; "
         f"launches {net_counts}")
+
+    # 10. unstructured models read from mesh files (gmsh, exodus): the
+    # wedge field on the ELL route with the BSR DILU, lgmres, bcgsl and lu
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        mesh_records, mesh_counts = mesh_file_phase(workdir, counters, w_run)
+        log(f"phase 10 (mesh files) {time.perf_counter() - t0:.2f} s; "
+            f"launches {mesh_counts}")
+        # ROADMAP C15: do card runs repeat their own counts, and what
+        # does the fixed-order scatter-sum cost?
+        t0 = time.perf_counter()
+        c15 = determinism_check(workdir, counters)
+        scatter_cost()
+        scatter_step_cost()
+    log(f"C15 check {time.perf_counter() - t0:.2f} s; (krylov, matvecs) "
+        f"{[(r['model'], r['mode'], r['krylov'], r['matvecs']) for r in c15]}")
 
     bw = res["measured_bandwidth_gb_s"] * 1e9
     entries = [
@@ -1217,6 +2039,7 @@ def main() -> int:
             "launches_model_run": run_counts[name],
             "launches_eos_models": eos_counts[name],
             "launches_network_model": net_counts[name],
+            "launches_mesh_file_models": mesh_counts[name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],

@@ -1,8 +1,8 @@
-"""Configuration handling of waiwera_tpu_torch: what lies outside the
-ported slice raises NotImplementedError naming the ROADMAP item that
-will port it, the source network, tracer, rock-control and gmres options
-build and match the JAX package's, and the state containers match the
-JAX package's."""
+"""Configuration handling of waiwera_tpu_torch: every option that an
+earlier slice refused (the source network, tracers, rock controls, mesh
+files, gmres, lgmres, lu, the nonlinear monitor) builds and matches the
+JAX package's, a name neither package knows is an error, and the state
+containers match the JAX package's."""
 
 import copy
 
@@ -37,9 +37,6 @@ def test_flagship_config_builds():
     sim = _sim(flagship_config(3, 2, 2))
     assert sim.mesh.num_interior_cells == 12
     assert sim.y0.dtype == torch.float64 and sim.region0.dtype == torch.int32
-
-
-_NOT_PORTED = NotImplementedError
 
 
 def _jax_sim(cfg):
@@ -129,15 +126,31 @@ def test_boundary_tracer_values():
     np.testing.assert_array_equal(x[~ghost], [[5.0e-4, 0.0]] * (~ghost).sum())
 
 
-def test_mesh_from_config_raises():
-    """A mesh section generates the mesh; a mesh file waits for the
-    readers, and no mesh at all is an error."""
+def test_mesh_from_config_raises(tmp_path):
+    """A mesh section generates the mesh; a mesh file, gmsh or (by its
+    suffix) exodus, is read to the JAX package's mesh; no mesh at all,
+    or a mesh type neither package knows, is an error."""
+    from chip_smoke import hex_box, write_exodus, write_gmsh
+    from waiwera_tpu.sim.simulation import Simulation as JSim
+
     cfg = flagship_config(3, 2, 2)
     with pytest.raises(ValueError, match="no mesh specified"):
         _sim(cfg, mesh=False)
-    for spec in ("box.msh", {"filename": "box.exo"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            _sim(dict(cfg, mesh=spec), mesh=False)
+    verts, conn = hex_box(3, 2, 2, ([50.0] * 3, [50.0] * 2, [20.0] * 2))
+    write_gmsh(str(tmp_path / "box.msh"), verts, [("hexahedron", conn)])
+    write_exodus(str(tmp_path / "box.exo"), verts, [("hexahedron", conn)])
+    for spec in (str(tmp_path / "box.msh"),
+                 {"filename": str(tmp_path / "box.exo")}):
+        st = _sim(dict(cfg, mesh=spec), mesh=False)
+        sj = JSim(copy.deepcopy(dict(cfg, mesh=spec)))
+        assert st.mesh.num_interior_cells == 12 and st.mesh.dim == 3
+        np.testing.assert_array_equal(st.mesh.face_cells, sj.mesh.face_cells)
+        for name in ("cell_volume", "cell_centroid", "face_area",
+                     "face_distance", "face_gravity_normal"):
+            np.testing.assert_allclose(getattr(st.mesh, name),
+                                       getattr(sj.mesh, name), rtol=1e-12,
+                                       atol=1e-9, err_msg=name)
+        np.testing.assert_array_equal(np_(st.y0), np.asarray(sj.y0))
     with pytest.raises(ValueError, match="cannot build mesh"):
         _sim(dict(cfg, mesh={"type": "voronoi"}), mesh=False)
     sim = _sim(dict(cfg, mesh={"type": "rectangular", "dx": [50.0] * 3,
@@ -162,27 +175,30 @@ def _run_one_step(cfg):
     return ts
 
 
-# item None: ported since the slice that refused it; one step runs and
-# matches the JAX package
-@pytest.mark.parametrize("path, value, item", [
+# every option here is ported now (gmres, the nonlinear monitor,
+# lgmres): one step runs and matches the JAX package
+@pytest.mark.parametrize("path, value, check", [
     (["time", "step", "solver", "linear"],
-     {"type": "gmres", "options": {"gmres": {"restart": 10}}}, None),
-    (["time", "step", "solver", "nonlinear", "monitor"], True, "A16"),
-    (["time", "step", "solver", "linear", "type"], "lgmres", "A14"),
+     {"type": "gmres", "options": {"gmres": {"restart": 10}}},
+     lambda p: p.linear_method == "gmres" and p.linear_restart == 10),
+    (["time", "step", "solver", "nonlinear", "monitor"], True,
+     lambda p: p.monitor),
+    (["time", "step", "solver", "linear", "type"], "lgmres",
+     lambda p: p.linear_method == "lgmres" and p.linear_augment == 2),
 ], ids=["gmres", "monitor", "lgmres"])
-def test_timestepper_options_outside_the_slice_raise(path, value, item):
-    from waiwera_tpu_torch.sim.timestepper import Timestepper
-
+def test_timestepper_options_outside_the_slice_raise(path, value, check,
+                                                     capfd):
     cfg = _with(path, value)
-    if item is None:
-        cfg["time"]["step"].update(size=1.0e3, maximum={"number": 1})
-        ts = _run_one_step(cfg)
-        assert ts.newton_params.linear_method == "gmres"
-        assert ts.newton_params.linear_restart == 10
-        assert ts.stats["linear_iterations"] > 0
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Timestepper(cfg, _sim(cfg))
+    cfg["time"]["step"].update(size=1.0e3, maximum={"number": 1})
+    capfd.readouterr()
+    ts = _run_one_step(cfg)
+    assert check(ts.newton_params)
+    assert ts.stats["linear_iterations"] > 0
+    monitor = [ln for ln in capfd.readouterr().out.splitlines()
+               if ln.startswith("newton it ")]
+    # one report before the loop and one per iteration, from each package
+    expect = 2 * (1 + ts.stats["newton_iterations"]) if value is True else 0
+    assert len(monitor) == expect
 
 
 @pytest.mark.parametrize("attr", ["tracers", "rock_controls"])
@@ -214,12 +230,13 @@ def test_timestepper_refuses_tracers_and_rock_controls(attr):
 
 
 def test_timestepper_reads_the_solver_section():
-    """Every key of time.step.solver arrives in NewtonParams, the gmres
-    restart included (carried for ROADMAP A14)."""
+    """Every key of time.step.solver arrives in NewtonParams, the
+    monitor included; lgmres's augmentation and bcgsl's degree keep
+    their PETSc defaults, which the schema does not set."""
     from waiwera_tpu_torch.sim.timestepper import Timestepper
 
     cfg = _with(["time", "step", "solver"], {
-        "nonlinear": {"maximum": {"iterations": 6},
+        "nonlinear": {"maximum": {"iterations": 6}, "monitor": True,
                       "minimum": {"iterations": 2},
                       "tolerance": {"function": {"relative": 1e-6,
                                                  "absolute": 2.0},
@@ -238,6 +255,7 @@ def test_timestepper_reads_the_solver_section():
     assert (p.linear_method, p.linear_pc) == ("bcgs", "ilu")
     assert (p.linear_rtol, p.linear_max_iterations) == (1e-7, 77)
     assert p.linear_restart == 12
+    assert (p.linear_augment, p.linear_ell, p.monitor) == (2, 2, True)
     assert (p.linear_dtype, p.jacobian_dtype) == ("float32", "float32")
 
 
@@ -249,14 +267,32 @@ def test_solver_options_outside_the_slice_raise():
     b = torch.ones(4, 3, dtype=torch.float64)
     res = krylov.solve("gmres", lambda v: v, b)
     assert res.converged and torch.equal(res.x, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        krylov.solve("lgmres", lambda v: v, torch.ones(4, 3))
+    # lgmres is ported: the identity solves in one cycle too
+    res = krylov.solve("lgmres", lambda v: v, b)
+    assert res.converged and torch.equal(res.x, b) and res.iterations == 1
     with pytest.raises(ValueError, match="unknown linear solver"):
         krylov.solve("sor", lambda v: v, torch.ones(4, 3))
-    n = sim.mesh.num_cells
-    parts = (torch.ones(9, n), torch.zeros(9, 1), torch.zeros(9, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        sim.system.linear_operator_from_parts(parts, "lu")
+    # lu is ported: beside the band SpMV of this box, the dense LU of the
+    # initial Jacobian, applied as the JAX package applies it
+    import jax.numpy as jnp
+    from torch_parity import torch_coeffs
+
+    sj = _jax_sim(flagship_config(3, 2, 2))
+    ct, _ = torch_coeffs(sim, 1.0e4)
+    parts = sim.system.jacobian_parts(sim.y0, sim.region0, sim.rock, ct,
+                                      0.0, 1.0e4)
+    pj = tuple(jnp.asarray(np_(p)) for p in parts)
+    assert sim.system.dia is not None
+    mv, pc = sim.system.linear_operator_from_parts(parts, "lu")
+    mvj, pcj = sj.system.linear_operator_from_parts(pj, "lu")
+    r = np.random.default_rng(3).standard_normal(tuple(sim.y0.shape))
+    want = np.asarray(pcj(jnp.asarray(r)))
+    # the same matrix in both packages, but its condition number is ~2e9:
+    # two LAPACK factorisations agree to ~cond x eps of the largest entry
+    np.testing.assert_allclose(np_(pc(torch.as_tensor(r))), want,
+                               rtol=1e-10, atol=1e-8 * np.abs(want).max())
+    np.testing.assert_allclose(np_(mv(torch.as_tensor(want))), r, rtol=1e-8,
+                               atol=1e-8 * np.abs(r).max())
 
 
 @pytest.mark.parametrize("method, first", [

@@ -10,7 +10,8 @@ waiwera_tpu_torch against waiwera_tpu.
 - ELL matvec against the JAX package's, f64 rtol 1e-13
   (tests/test_solver.py:240), on the flagship box and on a random
   unstructured pattern; and the ELL route's operator with block-Jacobi
-  against the band route's (rtol 1e-12 / 1e-10, test_solver.py:829).
+  against the band route's (rtol 1e-12 / 1e-10, test_solver.py:829), its
+  BSR DILU against the JAX package's (rtol 1e-10).
 """
 
 import numpy as np
@@ -131,5 +132,15 @@ def test_ell_route_operator_matches_band_route(systems):
                                    rtol=1e-12, atol=1e-10)
         np.testing.assert_allclose(np_(pc_a(v)), np_(pc_b(v)),
                                    rtol=1e-10, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        st.system.make_linear_operator(mat, "dilu")
+    # the BSR DILU of the ELL route against the JAX package's on the
+    # same matrix (the band route's DILU is another preconditioner)
+    import jax.numpy as jnp
+    from waiwera_tpu.solver import precond as jprecond
+
+    sj = systems[0]
+    mj = sj.system.assemble_bsr(tuple(jnp.asarray(np_(p)) for p in parts))
+    _, pc = st.system.make_linear_operator(mat, "dilu")
+    want = np.asarray(jprecond.make_preconditioner("dilu", mj)(
+        jnp.asarray(np_(v))))
+    np.testing.assert_allclose(np_(pc(v)), want, rtol=1e-10,
+                               atol=1e-12 * np.abs(want).max())

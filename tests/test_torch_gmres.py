@@ -154,7 +154,8 @@ def test_gmres_basis_memory_policy():
 
 def test_solve_dispatch():
     """solve("gmres") caps the cycles at ceil(max_iterations / restart),
-    as the JAX package; lgmres and bicgstab_l wait for ROADMAP A14."""
+    as the JAX package; lgmres, bcgsl and bicgstabl dispatch to LGMRES and
+    BiCGStab(l) and match the JAX package's solve."""
     from waiwera_tpu_torch.solver import krylov as tk
 
     _, dense = _laplacian(40, 2)
@@ -164,6 +165,14 @@ def test_solve_dispatch():
     assert res.matvecs == 1 + 2 * 6 and not res.converged
     res = tk.solve("gmres", mv, b, rtol=1e-10, restart=30)
     assert res.converged
+    import jax.numpy as jnp
+    from waiwera_tpu.solver import krylov as jk
+
+    mat, _ = _laplacian(40, 2)
     for method in ("lgmres", "bcgsl", "bicgstabl"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            tk.solve(method, mv, b)
+        rt = tk.solve(method, mv, b, rtol=1e-10)
+        rj = jk.solve(method, mat.matvec, jnp.asarray(b.numpy()), rtol=1e-10)
+        assert rt.converged and bool(rj.converged), method
+        assert rt.iterations == int(rj.iterations), method
+        np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=1e-8,
+                                   atol=1e-10, err_msg=method)

@@ -71,15 +71,23 @@ def test_boundary_faces_join_their_ghost_cells():
 
 
 def test_two_dimensional_mesh_raises():
-    """2-D quadrilateral meshes build; other element types wait for the
-    mesh file readers."""
+    """2-D quadrilateral meshes build, and so do triangles: a triangle
+    pair builds to the JAX package's mesh (every element type:
+    tests/test_torch_mesh_elements.py)."""
+    from waiwera_tpu.mesh.core import build_mesh as jbuild
     from waiwera_tpu_torch.mesh.core import build_mesh
     from waiwera_tpu_torch.mesh.rect import rectangular_mesh
 
     assert rectangular_mesh(DX, DY).dim == 2
-    verts = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        build_mesh(verts, [("triangle", np.array([[0, 1, 2]]))])
+    verts = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.2, 0.9]])
+    tris = np.array([[0, 1, 2], [1, 3, 2]])
+    mt = build_mesh(verts, [("triangle", tris)])
+    mj = jbuild(verts, [("triangle", tris)])
+    assert mt.dim == 2 and mt.num_cells == 2
+    np.testing.assert_array_equal(mt.face_cells, mj.face_cells)
+    for name in _MESH_FIELDS:
+        np.testing.assert_allclose(getattr(mt, name), getattr(mj, name),
+                                   rtol=1e-12, atol=1e-12, err_msg=name)
 
 
 _MESH_FIELDS = ("cell_centroid", "cell_volume", "face_area", "face_normal",

@@ -259,8 +259,16 @@ def _check_flows(sj, st):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_flows_match_jax(case):
+    """The flows of every case equal the JAX package's. A deliverability
+    threshold is read and applied by neither package (ROADMAP C14): the
+    port warns that it is ignored."""
     sources, network = CASES[case]
-    sj, st = sim_pair(_config(sources, network))
+    if case == "threshold":
+        with pytest.warns(UserWarning, match="threshold is read but not "
+                          "applied"):
+            sj, st = sim_pair(_config(sources, network))
+    else:
+        sj, st = sim_pair(_config(sources, network))
     q, collect = _check_flows(sj, st)
     assert torch.isfinite(q).all()
     if case.startswith("reinjector"):

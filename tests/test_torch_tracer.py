@@ -107,7 +107,7 @@ def test_tracer_solve_f32_basis(pair):
     frac = ft.phase_flow_fractions()[net.arrays.cell][:, pidx]
     args = (st.tracers, st.mesh_dev, ft, st.rock, fxt,
             st.eos.num_primary_variables, 1.0, 1.0e4, al_last * x_last,
-            net.arrays.cell, rate, frac, net.tracer_injection(0.0, 1.0e4),
+            net.arrays, rate, frac, net.tracer_injection(0.0, 1.0e4),
             st.tracer0)
     r64 = tracer_mod.solve(*args, rtol=1e-10, basis_dtype=None)
     r32 = tracer_mod.solve(*args, rtol=1e-10, basis_dtype=torch.float32)

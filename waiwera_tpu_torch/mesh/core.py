@@ -1,6 +1,5 @@
-"""Finite-volume mesh geometry and connectivity of quadrilateral (2-D)
-and hexahedral (3-D) meshes (counterpart of waiwera_tpu/mesh/core.py,
-numpy geometry path).
+"""Finite-volume mesh geometry and connectivity (counterpart of
+waiwera_tpu/mesh/core.py, numpy geometry path).
 
 Host-side (NumPy) replacement for the reference's PETSc DMPlex stack:
 - cell/face connectivity by vectorised face dedup (DMPlex cones/supports)
@@ -11,10 +10,9 @@ Host-side (NumPy) replacement for the reference's PETSc DMPlex stack:
 - Dirichlet boundaries as appended ghost cells with zero volume and
   centroid on the face (mesh.F90:583-667)
 
-Cell order is the input (natural) order. Quadrilaterals in 2-D and
-hexahedra in 3-D are ported (the meshes of rect.py); the other element
-types come with the mesh file readers (ROADMAP A16) and raise
-NotImplementedError until then.
+Cell order is the input (natural) order. Elements: triangles and
+quadrilaterals in 2-D; tetrahedra, pyramids, wedges and hexahedra in
+3-D, in blocks of one type each (mixed meshes have several blocks).
 """
 
 from __future__ import annotations
@@ -24,18 +22,26 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# local vertex indices of each hexahedron face, in cyclic order; the
-# orientation is normalised numerically (outward check)
-_HEX_FACES = [
-    (0, 3, 2, 1),
-    (4, 5, 6, 7),
-    (0, 1, 5, 4),
-    (1, 2, 6, 5),
-    (2, 3, 7, 6),
-    (3, 0, 4, 7),
-]
-# edges of a quadrilateral: the 'faces' of a 2-D mesh
-_QUAD_EDGES = [(0, 1), (1, 2), (2, 3), (3, 0)]
+# face templates per element type: local vertex indices per face, in
+# cyclic order; the orientation is normalised numerically (outward check)
+_FACES_3D = {
+    "tetra": [(0, 2, 1), (0, 1, 3), (1, 2, 3), (2, 0, 3)],
+    "pyramid": [(0, 3, 2, 1), (0, 1, 4), (1, 2, 4), (2, 3, 4), (3, 0, 4)],
+    "wedge": [(0, 2, 1), (3, 4, 5), (0, 1, 4, 3), (1, 2, 5, 4), (2, 0, 3, 5)],
+    "hexahedron": [
+        (0, 3, 2, 1),
+        (4, 5, 6, 7),
+        (0, 1, 5, 4),
+        (1, 2, 6, 5),
+        (2, 3, 7, 6),
+        (3, 0, 4, 7),
+    ],
+}
+# edges of the 2-D elements: the 'faces' of a 2-D mesh
+_EDGES_2D = {
+    "triangle": [(0, 1), (1, 2), (2, 0)],
+    "quad": [(0, 1), (1, 2), (2, 3), (3, 0)],
+}
 
 
 @dataclass
@@ -123,13 +129,24 @@ def _edge_geometry(verts: np.ndarray):
     return n, 0.5 * (verts[:, 0] + verts[:, 1])
 
 
-def _extract_faces(conn: np.ndarray, templates):
-    """All (cell, face) pairs of one element type: (sorted vertex keys
-    [nf_all, k], cell index [nf_all], vertex ids in cyclic order
-    [nf_all, k])."""
-    fverts = np.concatenate([conn[:, list(t)] for t in templates])
-    fcells = np.tile(np.arange(len(conn)), len(templates))
-    return np.sort(fverts, axis=1), fcells, fverts
+def _extract_faces(dim: int, cell_blocks, cell_offsets):
+    """All (cell, face) pairs, block by block and template by template:
+    (sorted vertex keys [nf_all, kmax], cell index [nf_all], vertex ids
+    in cyclic order [nf_all, kmax]); faces with fewer than kmax vertices
+    (triangles of a 3-D mesh) are padded with -1 in front."""
+    kmax = 4 if dim == 3 else 2
+    keys, cells, faces = [], [], []
+    for (etype, conn), off in zip(cell_blocks, cell_offsets):
+        templates = _FACES_3D[etype] if dim == 3 else _EDGES_2D[etype]
+        nc = len(conn)
+        for tmpl in templates:
+            fv = conn[:, list(tmpl)]
+            pad = np.full((nc, kmax - fv.shape[1]), -1, dtype=fv.dtype)
+            keys.append(np.concatenate([pad, np.sort(fv, axis=1)], axis=1))
+            faces.append(np.concatenate([pad, fv], axis=1))
+            cells.append(off + np.arange(nc))
+    return (np.concatenate(keys), np.concatenate(cells),
+            np.concatenate(faces))
 
 
 def _cell_geometry_2d(pts: np.ndarray):
@@ -149,18 +166,19 @@ def _cell_geometry_2d(pts: np.ndarray):
     return np.abs(area), cent / np.where(area != 0, area, 1.0)[:, None]
 
 
-def _cell_geometry_3d(pts: np.ndarray):
-    """Volume and centroid of hexahedra [nc, 8, 3]: tetrahedra (cell
-    mean, face mean, edge)."""
+def _cell_geometry_3d(pts: np.ndarray, templates):
+    """Volume and centroid of polyhedra [nc, nv, 3] with the given face
+    templates: tetrahedra (cell mean, face mean, edge)."""
     vmean = pts.mean(axis=1)  # [nc, 3]
     vol = np.zeros(len(pts))
     cent = np.zeros((len(pts), 3))
-    for tmpl in _HEX_FACES:
-        fverts = pts[:, list(tmpl)]  # [nc, 4, 3]
+    for tmpl in templates:
+        fverts = pts[:, list(tmpl)]  # [nc, k, 3]
         fmean = fverts.mean(axis=1)
-        for i in range(4):
+        k = fverts.shape[1]
+        for i in range(k):
             a = fverts[:, i]
-            b = fverts[:, (i + 1) % 4]
+            b = fverts[:, (i + 1) % k]
             d1 = fmean - vmean
             d2 = a - vmean
             d3 = b - vmean
@@ -171,6 +189,18 @@ def _cell_geometry_3d(pts: np.ndarray):
     return np.abs(vol), cent / np.where(vol != 0, vol, 1.0)[:, None]
 
 
+def _face_geometry_3d(v3: np.ndarray, fv: np.ndarray):
+    """(area_normal, centroid) of the faces given as padded vertex id
+    rows [n, 4]: triangles (first slot -1) and quadrilaterals."""
+    area_n = np.zeros((len(fv), 3))
+    cent = np.zeros((len(fv), 3))
+    tri = fv[:, 0] < 0
+    for sel, cols in ((tri, slice(1, None)), (~tri, slice(None))):
+        if np.any(sel):
+            area_n[sel], cent[sel] = _polygon_geometry(v3[fv[sel][:, cols]])
+    return area_n, cent
+
+
 def build_mesh(
     vertices: np.ndarray,
     cell_blocks: Sequence[Tuple[str, np.ndarray]],
@@ -179,19 +209,13 @@ def build_mesh(
     thickness: float = 1.0,
 ) -> Mesh:
     """Build mesh connectivity and FV geometry from vertices [nv, dim]
-    and cells: cell_blocks [("quad", connectivity [nc, 4])] in 2-D or
-    [("hexahedron", connectivity [nc, 8])] in 3-D, vertex indices
-    0-based. Cells are numbered block by block in input order (this is
-    the natural order). Gravity defaults to 9.8 m/s2 down the last mesh
-    dimension."""
+    and cells: cell_blocks [(element_type, connectivity [nc_e, nvpe])],
+    element types "triangle" and "quad" in 2-D, "tetra", "pyramid",
+    "wedge" and "hexahedron" in 3-D, vertex indices 0-based. Cells are
+    numbered block by block in input order (this is the natural order).
+    Gravity defaults to 9.8 m/s2 down the last mesh dimension."""
     vertices = np.asarray(vertices, dtype=np.float64)
     dim = vertices.shape[1]
-    kinds = {etype for etype, _ in cell_blocks}
-    if (dim, kinds) not in ((2, {"quad"}), (3, {"hexahedron"})):
-        raise NotImplementedError(
-            f"{dim}-D meshes of {sorted(kinds)} are not ported yet, only "
-            "2-D quadrilaterals and 3-D hexahedra (ROADMAP A16)"
-        )
     g3 = np.zeros(3)
     if gravity is None:
         g3[dim - 1] = -9.8
@@ -199,24 +223,32 @@ def build_mesh(
         g = np.asarray(gravity, dtype=np.float64)
         g3[: len(g)] = g
 
-    conn = np.concatenate(
-        [np.asarray(c, dtype=np.int64) for _, c in cell_blocks]
-    )
-    num_cells = len(conn)
+    cell_blocks = [(etype, np.asarray(c, dtype=np.int64))
+                   for etype, c in cell_blocks]
+    sizes = [len(c) for _, c in cell_blocks]
+    cell_offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    num_cells = int(sum(sizes))
     v3 = _pad3(vertices)
 
     # ---- cell geometry -------------------------------------------
-    if dim == 2:
-        cell_volume, cell_centroid = _cell_geometry_2d(v3[conn])
-        face_geom = _edge_geometry
-        templates = _QUAD_EDGES
-    else:
-        cell_volume, cell_centroid = _cell_geometry_3d(v3[conn])
-        face_geom = _polygon_geometry
-        templates = _HEX_FACES
+    cell_volume = np.zeros(num_cells)
+    cell_centroid = np.zeros((num_cells, 3))
+    for (etype, conn), off in zip(cell_blocks, cell_offsets):
+        cells = slice(off, off + len(conn))
+        if dim == 2:
+            vol, cent = _cell_geometry_2d(v3[conn])
+        else:
+            vol, cent = _cell_geometry_3d(v3[conn], _FACES_3D[etype])
+        cell_volume[cells] = vol
+        cell_centroid[cells] = cent
+
+    def face_geom(fv):
+        if dim == 2:
+            return _edge_geometry(v3[fv])
+        return _face_geometry_3d(v3, fv)
 
     # ---- face extraction + dedup ---------------------------------
-    keys, fcells, fverts = _extract_faces(conn, templates)
+    keys, fcells, fverts = _extract_faces(dim, cell_blocks, cell_offsets)
     order = np.lexsort(keys.T[::-1])
     keys_s = keys[order]
     fcells_s = fcells[order]
@@ -237,16 +269,12 @@ def build_mesh(
     cell_b = np.full(num_unique, -1, dtype=np.int64)
     cell_b[face_id[idx_second]] = fcells_s[idx_second]
     cell_b = cell_b[interior_ids]
-    area_normal, fcentroid = face_geom(
-        v3[fverts_s[first_idx[interior_ids]]]
-    )
+    area_normal, fcentroid = face_geom(fverts_s[first_idx[interior_ids]])
 
     # exterior faces: one support
     ext_ids = np.nonzero(counts == 1)[0]
     ext_cell = fcells_s[first_idx[ext_ids]]
-    ext_area_normal, ext_centroid = face_geom(
-        v3[fverts_s[first_idx[ext_ids]]]
-    )
+    ext_area_normal, ext_centroid = face_geom(fverts_s[first_idx[ext_ids]])
 
     # orient interior normals from cell_a to cell_b
     d12 = cell_centroid[cell_b] - cell_centroid[cell_a]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from waiwera_tpu_torch.mesh.core import Mesh
+from waiwera_tpu_torch.ops.segment import SegmentSum
 
 
 class MeshArrays(NamedTuple):
@@ -34,6 +35,9 @@ class MeshArrays(NamedTuple):
     # host_flux[face_perm[f]] = face_sign[f] * device_flux[f]
     face_perm: Optional[np.ndarray] = None
     face_sign: Optional[np.ndarray] = None
+    # per-face values into cells: the left cells' entries [F] then the
+    # right cells' [F], in a fixed order (ops/segment.py)
+    face_sum: Optional[SegmentSum] = None
 
     def to(self, dtype: torch.dtype) -> "MeshArrays":
         """The same mesh with its floating geometry cast to dtype."""
@@ -78,6 +82,8 @@ def mesh_arrays(mesh: Mesh, device="cpu") -> MeshArrays:
         num_interior_cells=mesh.num_interior_cells,
         face_perm=perm,
         face_sign=np.where(flip, -1.0, 1.0)[perm],
+        face_sum=SegmentSum(np.concatenate([fc[perm, 0], fc[perm, 1]]),
+                            mesh.num_cells, device),
     )
 
 

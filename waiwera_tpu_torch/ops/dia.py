@@ -19,7 +19,7 @@ Meshes that are banded except for a face tail (MINC fracture-matrix
 connections, boundary faces) take the hybrid split of the JAX package:
 the longest prefix of canonically ordered faces that the JAX cover rule
 (face_plan_direct) accepts goes into bands, the rest is applied by the
-caller with index_add (hybrid_split).
+caller with a fixed-order scatter-sum (hybrid_split).
 """
 
 from __future__ import annotations
@@ -227,6 +227,31 @@ def bands_from_blocks(dia: DIAStructure, fill: BandFill,
         block_size=b,
         num_rows=n,
     )
+
+
+def to_dia(mat, dia: DIAStructure, dtype=None) -> DIAMatrix:
+    """Assembled BSR data (solver.bsr.BSRMatrix) in band layout: each
+    band's blocks gathered by their positions in the row-major key
+    (found on the host), absent blocks zero."""
+    s = mat.structure
+    n, b = s.num_rows, s.block_size
+    key = s.rows * n + s.indices
+    nnzb = len(key)
+    i = np.arange(n, dtype=np.int64)
+    pos = np.full((len(dia.offsets), n), nnzb, dtype=np.int64)
+    for k, d in enumerate(dia.offsets):
+        j = i + d
+        want = i * n + j
+        p = np.minimum(np.searchsorted(key, want), nnzb - 1)
+        found = (j >= 0) & (j < n) & (key[p] == want)
+        pos[k, found] = p[found]
+    data = torch.cat([mat.data, mat.data.new_zeros((1, b, b))])
+    bands = data[torch.as_tensor(pos, device=data.device)]  # [D, N, b, b]
+    bands = bands.reshape(len(dia.offsets), n, b * b).transpose(1, 2)
+    if dtype is not None:
+        bands = bands.to(dtype)
+    return DIAMatrix(offsets=dia.offsets, bands=bands.contiguous(),
+                     block_size=b, num_rows=n)
 
 
 def dia_matvec_reference(m: DIAMatrix, x: torch.Tensor) -> torch.Tensor:

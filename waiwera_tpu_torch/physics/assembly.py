@@ -7,7 +7,8 @@ waiwera_tpu/physics/assembly.py).
   permeability/conductivity averaging, saturation-weighted face density,
   capillary and gravity effective gradients
 - cell_inflows (flow_simulation.F90:1334-1485): flux * area / volume,
-  added with sign -1 into cell 1 and +1 into cell 2 (index_add)
+  added with sign -1 into cell 1 and +1 into cell 2 (a fixed-order
+  scatter-sum, ops/segment.py)
 
 Everything is out-of-place tensor code, differentiable under
 torch.func.jvp (the AD block Jacobian is built on it).
@@ -148,12 +149,12 @@ def cell_inflows(fluxes: torch.Tensor, mesh: MeshArrays,
                  num_primary: int) -> torch.Tensor:
     """[N, npv] net inflow per unit volume from face fluxes
     (flow_simulation.F90:1429-1460): -flux*area/vol into cell 1,
-    +flux*area/vol into cell 2, none into ghost cells."""
+    +flux*area/vol into cell 2, none into ghost cells; summed in face
+    order (mesh.face_sum)."""
     flow = fluxes[:, :num_primary] * mesh.face_area[:, None]  # [F, npv]
     n = mesh.cell_volume.shape[0]
-    rhs = fluxes.new_zeros((n, num_primary))
-    rhs = rhs.index_add(0, mesh.face_cells[:, 0], -flow)
-    rhs = rhs.index_add(0, mesh.face_cells[:, 1], flow)
+    rhs = mesh.face_sum.add(fluxes.new_zeros((n, num_primary)),
+                            torch.cat([-flow, flow]))
     vol = torch.where(mesh.cell_volume > 0.0, mesh.cell_volume, 1.0)
     rhs = rhs / vol[:, None]
     return torch.where(mesh.is_ghost[:, None], 0.0, rhs)

@@ -35,12 +35,14 @@ No value crosses to the host inside `flows`.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from waiwera_tpu_torch.ops.segment import SegmentSum
 from waiwera_tpu_torch.sim.sources import (
     SourceArrays,
     SourceCellState,
@@ -377,6 +379,7 @@ class SourceNetwork:
             production_component=dev(
                 [s.prod_component for s in self.specs], torch.int64),
             volume=dev(mesh.cell_volume[cells], torch.float64),
+            cell_sum=SegmentSum(cells, mesh.num_cells, self.device),
         )
         self.rate_specified = np.asarray(
             [s.rate_specified for s in self.specs], bool)
@@ -524,7 +527,9 @@ class SourceNetwork:
             mask = np.zeros(ns, bool)
             mask[desc] = True
             self._group_index[g.name] = (
-                idx(desc), idx(member), idx(slot),
+                idx(desc),
+                SegmentSum(member, len(g.member_descendants), dev),
+                idx(slot),
                 torch.as_tensor(mask, device=dev),
             )
         self._target_index = {}
@@ -573,6 +578,13 @@ class SourceNetwork:
             if not isinstance(deliv, dict):
                 deliv = {}
             s.deliv_threshold = float(deliv.get("threshold", -1.0))
+            if "threshold" in deliv:
+                # ROADMAP C14: read and kept as the JAX package keeps
+                # it, but no rule applies it
+                warnings.warn(
+                    f"source {s.name!r}: deliverability.threshold is read "
+                    "but not applied (the production rate ignores it)",
+                    stacklevel=2)
             self._parse_pref(s, deliv, "deliv", ispec)
             prod = deliv.get("productivity")
             if prod is None:
@@ -1155,13 +1167,12 @@ class SourceNetwork:
         """[members] scale factors limiting the members progressively in
         order (source_network_group.F90:676-764, utils.F90:607-647); the
         member sums are one segment sum over the descendant sources."""
-        desc, member, _, _ = self._group_index[g.name]
+        desc, member_sum, _, _ = self._group_index[g.name]
         nm = len(g.member_descendants)
         rates = {FLOW_TOTAL: q, FLOW_WATER: qw, FLOW_STEAM: qs}
         member_scale = q.new_ones(nm)
         for ft, limit in limits.items():
-            a = torch.abs(q.new_zeros(nm).index_add(0, member,
-                                                    rates[ft][desc]))
+            a = torch.abs(member_sum.add(q.new_zeros(nm), rates[ft][desc]))
             total_over = torch.sum(a) > limit
             prev = torch.cumsum(a, 0) - a
             node_limit = minimum(maximum(limit - prev, 0.0), a)

@@ -14,9 +14,9 @@ per-cell initial primaries, regions and tracers, or a restart from an
 HDF5 output file; Dirichlet boundaries with boundary tracer values; the
 source network of sim/network.py (controls, separators, limiters,
 groups, reinjectors); passive tracers (sim/tracer.py). The mesh is
-passed in or generated from the config ("type": "rectangular" or
-"column"; mesh files wait for ROADMAP A16, and raise
-NotImplementedError). The config is read in the JAX package's order, so
+passed in, read from a gmsh or ExodusII file (mesh.filename), or
+generated from the config ("type": "rectangular" or "column"). The
+config is read in the JAX package's order, so
 that a tracked config (utils/config.py) logs the same defaults.
 
 The simulation runs on the CUDA device unless the caller names another
@@ -50,10 +50,6 @@ from waiwera_tpu_torch.sim.network import SourceNetwork
 from waiwera_tpu_torch.solver.newton import NewtonParams, newton_solve
 from waiwera_tpu_torch.solver.system import System, method_coeffs
 from waiwera_tpu_torch.utils.interpolation import InterpolationTable
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -150,9 +146,11 @@ class Simulation:
 
     @staticmethod
     def _mesh_from_config(config) -> Mesh:
-        """The mesh generated from config["mesh"]: "type": "column"
-        (dz, area) or "rectangular" (dx, dy, dz, radial, thickness).
-        Gravity is set by the caller, once the dimension is known."""
+        """The mesh of config["mesh"]: a file name (ExodusII by its
+        suffix .exo, .e, .ex2 or .g, gmsh otherwise, with radial and
+        thickness), or generated: "type": "column" (dz, area) or
+        "rectangular" (dx, dy, dz, radial, thickness). Gravity is set by
+        the caller, once the dimension is known."""
         mesh_cfg = config.get("mesh")
         if mesh_cfg is None:
             raise ValueError("no mesh specified")
@@ -161,9 +159,14 @@ class Simulation:
         radial = bool(mesh_cfg.get("radial", False))
         thickness = float(mesh_cfg.get("thickness", 1.0))
         if "filename" in mesh_cfg:
-            raise _not_ported(
-                f"reading the mesh file {mesh_cfg['filename']!r} (gmsh and "
-                "exodus readers)", "A16")
+            fname = mesh_cfg["filename"]
+            if fname.lower().endswith((".exo", ".e", ".ex2", ".g")):
+                from waiwera_tpu_torch.mesh.exodus import read_exodus
+
+                return read_exodus(fname, radial=radial, thickness=thickness)
+            from waiwera_tpu_torch.mesh.gmsh import read_gmsh
+
+            return read_gmsh(fname, radial=radial, thickness=thickness)
         if mesh_cfg.get("type") == "column":
             from waiwera_tpu_torch.mesh.rect import column_mesh
 
@@ -534,10 +537,11 @@ class Simulation:
 
         def tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
                         t0, t1, dt, dt_last, first, use_bdf2):
-            rate = cells = frac = inj = None
+            rate = arrays = frac = inj = None
             if network is not None and network.num_sources > 0:
                 rate, _ = network.flows(fluid, t0, t1)
-                cells = network.arrays.cell
+                arrays = network.arrays
+                cells = arrays.cell
                 frac = fluid.phase_flow_fractions()[cells][:, pidx]
                 inj = network.tracer_injection(t0, t1, like=rate)
             dt = float(dt)
@@ -551,7 +555,7 @@ class Simulation:
                           - r * r * al_last2 * x_last2)
             return tracer_mod.solve(
                 tracers, self.mesh_dev, fluid, self.rock, fluxes, npv, c_al,
-                dt_eff, b_hist, cells, rate, frac, inj, self.tracer0,
+                dt_eff, b_hist, arrays, rate, frac, inj, self.tracer0,
             )
 
         return tracer_step

@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from waiwera_tpu_torch.ops.segment import SegmentSum
 from waiwera_tpu_torch.physics.state import FluidState
 
 
@@ -22,6 +23,7 @@ class SourceArrays(NamedTuple):
     injection_component: torch.Tensor  # [ns] int64 (1-based; 0 = default)
     production_component: torch.Tensor  # [ns] int64 (1-based; 0 = distribute)
     volume: torch.Tensor  # [ns] f64 volume of the host cell
+    cell_sum: SegmentSum  # per-source values into their cells
 
 
 class SourceCellState(NamedTuple):
@@ -122,6 +124,4 @@ def source_inflows(
         num_components, isothermal,
     )
     inflow = flow.new_zeros((num_cells, num_primary))
-    return inflow.index_add(
-        0, src.cell, flow / src.volume.to(flow.dtype)[:, None]
-    )
+    return src.cell_sum.add(inflow, flow / src.volume.to(flow.dtype)[:, None])

@@ -31,7 +31,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from waiwera_tpu_torch.solver import krylov
 from waiwera_tpu_torch.solver.newton import NewtonParams
 from waiwera_tpu_torch.utils.logging import Logger
 
@@ -198,14 +197,9 @@ class Timestepper:
             jacobian_dtype=str(
                 opt(lin, "jacobian_dtype", "float64")
             ).lower(),
+            # per-iteration monitor (-snes_monitor analogue)
+            monitor=bool(opt(sol, "monitor", False)),
         )
-        # per-iteration monitor (-snes_monitor analogue)
-        if bool(opt(sol, "monitor", False)):
-            raise NotImplementedError(
-                "the per-iteration nonlinear monitor is not ported yet "
-                "(ROADMAP A16)"
-            )
-        krylov.require_ported(self.newton_params.linear_method)
 
         # output config
         ocfg = config.get("output", {}) or {}

@@ -21,11 +21,11 @@ Rows of cells where the tracer phase is absent are identity rows with a
 zero right-hand side; Dirichlet boundary (ghost) rows hold the boundary
 tracer value (flow_simulation.F90:1837-1959). The operator is
 matrix-free: advection and diffusion are indexed face gathers and one
-two-sided index_add scatter per application, in the canonical face order
-of the flow solve's fluxes. It is solved with GMRES and Jacobi on an
-exactly assembled diagonal (the reference's KSP gmres/bjacobi,
-timestepper.F90:1840-1851). Tracers are one-way coupled (flow ->
-tracer).
+two-sided fixed-order scatter-sum (ops/segment.py) per application, in
+the canonical face order of the flow solve's fluxes. It is solved with
+GMRES and Jacobi on an exactly assembled diagonal (the reference's KSP
+gmres/bjacobi, timestepper.F90:1840-1851). Tracers are one-way coupled
+(flow -> tracer).
 """
 
 from __future__ import annotations
@@ -131,7 +131,7 @@ def solve(
     c_al: float,
     dt_eff: float,
     b_hist: torch.Tensor,
-    source_cell: Optional[torch.Tensor],
+    sources,
     source_rate: Optional[torch.Tensor],
     source_frac: Optional[torch.Tensor],
     tracer_injection: Optional[torch.Tensor],
@@ -145,6 +145,8 @@ def solve(
     mesh: MeshArrays (canonical face order, that of `fluxes`).
     b_hist: the history part of b ([N, nt], method-dependent, computed by
     the caller from the last steps' balance coefficients and tracers).
+    sources: the network's SourceArrays (cells and their scatter-sum), or
+    None without sources.
     source_frac: [ns, nt] tracer-phase flow fractions at source cells.
     tracer_injection: [ns, nt] injection rates.
     ghost_value: [N, nt] Dirichlet values of the ghost rows.
@@ -162,8 +164,8 @@ def solve(
     is_ghost = mesh.is_ghost
 
     def scatter2(va, vb):
-        out = va.new_zeros((n,) + va.shape[1:])
-        return out.index_add(0, cl, va).index_add(0, cr, vb)
+        return mesh.face_sum.add(va.new_zeros((n,) + va.shape[1:]),
+                                 torch.cat([va, vb]))
 
     pidx, _, _, diffusion = tracers._on(fluid.pressure)
     al = balance_coefs(tracers, fluid, rock)
@@ -185,15 +187,16 @@ def solve(
     decay_diag = -tracers.decay_rate(fluid.temperature) * al  # [N, nt]
     prod_diag = al.new_zeros((n, nt))
     brhs = al.new_zeros((n, nt))
-    if source_cell is not None and source_cell.shape[0] > 0:
+    if sources is not None and sources.cell.shape[0] > 0:
+        source_cell = sources.cell
         producing = source_rate < 0.0
         q_over_v = source_rate / vol[source_cell]
         prod_contrib = torch.where(producing[:, None],
                                    source_frac * q_over_v[:, None], 0.0)
-        prod_diag = prod_diag.index_add(0, source_cell, prod_contrib)
+        prod_diag = sources.cell_sum.add(prod_diag, prod_contrib)
         inj = torch.where(producing[:, None], 0.0,
                           tracer_injection / vol[source_cell][:, None])
-        brhs = brhs.index_add(0, source_cell, inj)
+        brhs = sources.cell_sum.add(brhs, inj)
 
     # tracer phase present? (the phase_composition bitmask)
     present = ((fluid.phase_composition[:, None].to(torch.int64)

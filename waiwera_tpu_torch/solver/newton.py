@@ -11,7 +11,8 @@ Same semantics as the JAX package:
   bounds check (flow_simulation_fluid_transitions)
 
 Each iteration's convergence test is one host sync (counted, with the
-Krylov solver's, in NewtonResult.host_syncs).
+Krylov solver's, in NewtonResult.host_syncs); the monitor's report, when
+it is on, is one more per iteration and one before the loop.
 """
 
 from __future__ import annotations
@@ -38,7 +39,13 @@ class NewtonParams(NamedTuple):
     linear_pc: str = "bjacobi"
     linear_rtol: float = 1e-5
     linear_max_iterations: int = 1000
-    linear_restart: int = 30  # gmres subspace size
+    linear_restart: int = 30  # gmres/lgmres subspace size
+    linear_augment: int = 2  # lgmres augmentation depth (PETSc default)
+    linear_ell: int = 2  # bcgsl polynomial degree (PETSc default)
+    # per-iteration nonlinear monitor (SNES_monitor,
+    # timestepper.F90:1855-1894): prints iteration, scaled residual norm,
+    # worst cell and worst equation, one host sync per report
+    monitor: bool = False
     # precision of the inner Krylov solve and of the Jacobian tangent
     # chain; the residual and the convergence tests stay f64
     linear_dtype: str = "float64"
@@ -141,6 +148,12 @@ def newton_solve(
         (params.min_iterations <= 0) & (maxres < params.function_rtol),
         any_err(err0) | ~torch.isfinite(fnorm0),
     )
+    if params.monitor:
+        syncs += 1
+        r_h, c_h, e_h = torch.stack([maxres, wc.to(maxres.dtype),
+                                     we.to(maxres.dtype)]).cpu().tolist()
+        print(f"newton it 0: maxres {r_h:.6e} worst cell {int(c_h)} "
+              f"eq {int(e_h)}")
 
     linear_dtype = _resolve_dtype(params.linear_dtype, "linear_dtype")
     jacobian_dtype = _resolve_dtype(params.jacobian_dtype, "jacobian_dtype")
@@ -164,6 +177,8 @@ def newton_solve(
             rtol=params.linear_rtol,
             max_iterations=params.linear_max_iterations,
             restart=params.linear_restart,
+            augment=params.linear_augment,
+            ell=params.linear_ell,
         )
         syncs += lin.host_syncs
         matvecs += lin.matvecs
@@ -195,6 +210,14 @@ def newton_solve(
         maxres, wc, we = max_scaled_loc(r, lhs_scale, params.function_atol)
         maxupd = torch.max(max_scaled(y - y_new, y_new, params.update_atol))
         fnorm = fnorm_of(r)
+        if params.monitor:
+            syncs += 1
+            r_h, u_h, c_h, e_h = torch.stack([
+                maxres, maxupd, wc.to(maxres.dtype), we.to(maxres.dtype),
+            ]).cpu().tolist()
+            print(f"newton it {it}: maxres {r_h:.6e} maxupd {u_h:.3e} "
+                  f"worst cell {int(c_h)} eq {int(e_h)} linear its "
+                  f"{lin.iterations}")
         failed_now, conv_now = to_host(
             any_err(terr) | any_err(bounds_err) | any_err(perr)
             | ~torch.isfinite(fnorm)

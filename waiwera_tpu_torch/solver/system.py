@@ -13,7 +13,8 @@ sources are cell-local and fluxes are face-local in the gathered pair
 representation, npv jvps over the cell chain plus 2*npv over the flux
 chain give every block directly. Regions are frozen during
 differentiation (doc/dev/code/index.md:37-39). Face data moves by
-indexed gathers and index_add scatters in the canonical face order.
+indexed gathers and fixed-order scatter-sums (ops/segment.py) in the
+canonical face order.
 """
 
 from __future__ import annotations
@@ -21,14 +22,16 @@ from __future__ import annotations
 from functools import cached_property
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from waiwera_tpu_torch.mesh.device import MeshArrays
 from waiwera_tpu_torch.ops import dia, ell
+from waiwera_tpu_torch.ops.segment import SegmentSum
 from waiwera_tpu_torch.physics import assembly
 from waiwera_tpu_torch.physics.state import FluidState, RockState
 from waiwera_tpu_torch.sim.sources import source_inflows
-from waiwera_tpu_torch.solver import bsr
+from waiwera_tpu_torch.solver import bsr, precond
 from waiwera_tpu_torch.solver.smallblocks import (
     apply_blocks_em,
     batch_from_em,
@@ -104,6 +107,12 @@ class System:
         self.cr = mesh.face_cells[:, 1]
         self._tail_cl = self.cl[self.f_live:]
         self._tail_cr = self.cr[self.f_live:]
+        self._tail_sum = (
+            SegmentSum(np.concatenate([face_cells[self.f_live:, 0],
+                                       face_cells[self.f_live:, 1]]),
+                       mesh.num_cells, device)
+            if self.hybrid is not None else None
+        )
 
     @cached_property
     def _face_positions(self):
@@ -119,6 +128,13 @@ class System:
     def ell_tables(self) -> ell.ELLStructure:
         return ell.ell_structure(self.structure,
                                  device=self.mesh.is_ghost.device)
+
+    @cached_property
+    def ilu_split(self) -> precond.ILU0Data:
+        """The lower/upper split of the BSR DILU, built once on the
+        host."""
+        return precond.ilu0_split(self.structure,
+                                  device=self.mesh.is_ghost.device)
 
     def mesh_as(self, dtype: torch.dtype) -> MeshArrays:
         """The mesh with floating geometry in dtype (cast once), so an
@@ -307,7 +323,8 @@ class System:
             ghost_l, 0.0, dt_eff * av_l * dflux_l[v][:, ii]))
         contrib_r2 = stack(lambda ii, v: torch.where(
             ghost_r, 0.0, -dt_eff * av_r * dflux_r[v][:, ii]))
-        diag2 = diag2.index_add(1, cl, contrib_l2).index_add(1, cr, contrib_r2)
+        diag2 = mesh.face_sum.add(diag2, torch.cat([contrib_l2, contrib_r2],
+                                                   1), dim=1)
         # ghost rows: identity
         eye2 = torch.eye(npv, dtype=dtype, device=y.device).reshape(-1, 1)
         diag2 = torch.where(mesh.is_ghost[None, :], eye2, diag2)
@@ -348,23 +365,25 @@ class System:
 
     # -- linear operator -----------------------------------------------
 
+    def make_matvec(self, mat: bsr.BSRMatrix, dtype=None):
+        """SpMV closure of assembled BSR data: the band layout on banded
+        meshes (the dia_spmv kernel on the card), ELL otherwise."""
+        if self.dia is not None:
+            m = dia.to_dia(mat, self.dia, dtype)
+            return lambda x: dia.dia_matvec(m, x.to(m.bands.dtype))
+        return ell.to_ell(mat, self.ell_tables, dtype).matvec
+
     def make_linear_operator(self, mat: bsr.BSRMatrix, pc_name: str,
                              dtype=None):
         """(matvec, preconditioner) from assembled BSR data through the
-        ELL layout (the JAX package's non-banded route): block-Jacobi,
-        which line and cpr fall back to off a box, or none. The BSR-route
-        DILU and LU are not ported."""
-        if pc_name not in ("none", "bjacobi", "jacobi", "line", "zline",
-                           "cpr", "cprmg"):
-            raise NotImplementedError(
-                f"preconditioner {pc_name!r} on the ELL route is not "
-                "ported yet (ROADMAP A14)"
-            )
+        ELL layout (the JAX package's non-banded route), with every
+        preconditioner of precond.make_preconditioner (line and cpr
+        fall back to block-Jacobi off a box)."""
         mv = ell.to_ell(mat, self.ell_tables, dtype).matvec
-        if pc_name == "none":
-            return mv, (lambda r: r)
-        dinv2 = invert_blocks_em(em_from_batch(mat.diag_blocks()))
-        return mv, dia.dia_block_jacobi_em(dinv2, dtype)
+        split = (self.ilu_split if pc_name in ("asm", "ilu", "dilu", "sgs")
+                 else None)
+        return mv, precond.make_preconditioner(
+            pc_name, mat, split=split, sweeps=dia.DILU_SWEEPS, dtype=dtype)
 
     def linear_operator_from_parts(self, parts, pc_name: str, dtype=None):
         """(matvec, preconditioner) from block parts.
@@ -372,15 +391,13 @@ class System:
         Banded and hybrid meshes: bands filled by index in the parts'
         dtype (so factorisations see full precision) and applied in
         `dtype`; the hybrid tail faces[f_live:] is added to the band SpMV
-        with index_add. pc_name: none, bjacobi/jacobi, line/zline,
+        by a fixed-order scatter-sum. pc_name: none, bjacobi/jacobi, line/zline,
         cpr/cprmg, or asm/ilu/dilu/sgs (the band DILU, which on a hybrid
-        mesh factors the banded part only). Other meshes take
-        make_linear_operator on assembled BSR data."""
-        if pc_name == "lu":
-            raise NotImplementedError(
-                "preconditioner 'lu' is not ported yet (ROADMAP A14)"
-            )
-        if self.bands is None:
+        mesh factors the banded part only). "lu" factors the assembled
+        BSR matrix densely beside the band SpMV of a banded mesh. Other
+        meshes, and "lu" on a hybrid mesh, take make_linear_operator on
+        assembled BSR data, as in the JAX package."""
+        if self.bands is None or (pc_name == "lu" and self.dia is None):
             return self.make_linear_operator(self.assemble_bsr(parts),
                                              pc_name, dtype=dtype)
         diag2, lr2, rl2 = parts
@@ -396,9 +413,9 @@ class System:
             tcl, tcr = self._tail_cl, self._tail_cr
 
             def mv(x):
-                y = dia.dia_matvec(m, x)
-                y.index_add_(0, tcl, apply_blocks_em(lr_t, x[tcr]))
-                return y.index_add_(0, tcr, apply_blocks_em(rl_t, x[tcl]))
+                return self._tail_sum.add(dia.dia_matvec(m, x), torch.cat([
+                    apply_blocks_em(lr_t, x[tcr]),
+                    apply_blocks_em(rl_t, x[tcl])]))
 
         def bjacobi():
             return dia.dia_block_jacobi_em(invert_blocks_em(diag2), dtype)
@@ -419,6 +436,8 @@ class System:
                 pc = mg.cpr_apply(levels, dims, mv, pc, self.mesh.num_cells)
         elif pc_name in ("asm", "ilu", "dilu", "sgs"):
             pc = dia.dia_dilu_em(m64, dtype=dtype)
+        elif pc_name == "lu":
+            pc = precond.lu(self.assemble_bsr(parts), dtype=dtype)
         else:
             raise ValueError(f"unknown preconditioner: {pc_name!r}")
         return mv, pc
