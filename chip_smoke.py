@@ -115,7 +115,22 @@ Phases (any failure raises and the exit code is nonzero):
    2e-5; (d) a 5 x 4 x 3 box of 20 m cubes in 6 tetrahedra each (720
    unknowns) with lgmres + lu and the monitor, on the card and on the
    CPU: the same tries, y within rtol 2e-5. Every monitored run must
-   print one line per try and per Newton iteration. Then the ROADMAP C15
+   print one line per try and per Newton iteration. (a)'s file is also
+   read with numpy and on the card (mesh/geometry.py), both timed: face
+   order equal, geometry within rtol 1e-12;
+11. the multi-device run (parallel/): 4 ranks sharing the card through
+   gloo, spawned once (parallel/launch.py) for (a) phase 8 (a)'s "we"
+   model at 128 x 64 x 64, bjacobi, 2 steps, (b) phase 9's production
+   field at 48 x 32 x 32 with asm (the local DILU, restricted additive
+   Schwarz), 3 steps, twice, (c) phase 10 (b)'s 49,152 wedges from gmsh
+   4.1 binary (the graph partitioner, local RCM, the ELL route), lgmres
+   + asm, 3 steps; each against the same model on one rank: the same
+   tries and Newton iterations, y within rtol 1e-8 / atol 1e-10 in (a)
+   and rtol 2e-5 in (b) (tracers too) and (c); on every rank of (a)
+   dia_spmv_f64 launches = its Krylov matvecs > 0; (b)'s two runs
+   repeat their counts (checked again with the C15 runs); (d) where
+   there are 2 cards or more, (a) over NCCL with one rank per card,
+   else one line saying so. Then the ROADMAP C15
    check: phase 8 (c) "w" and phase 9's production field at 48 x 32 x 32,
    each twice in the default mode and twice under
    torch.use_deterministic_algorithms, which must repeat their counts;
@@ -126,9 +141,10 @@ Phases (any failure raises and the exit code is nonzero):
 Prints each bench section's wall time on its own line, then the model
 runs' times and counts, the bench's full JSON record, one JSON line
 {"kernels": [...]} (launches on the bench path, on the phase 7 model run,
-over phase 8's card runs, on phase 9's full-size run and over phase 10's
-card runs) and the card's nvidia-smi name and power limit; the last line is {"ok": true, "device": {...}}. Exits nonzero
-without a CUDA device.
+over phase 8's card runs, on phase 9's full-size run, over phase 10's
+card runs and over every rank of phase 11's runs) and the card's
+nvidia-smi name and power limit; the last line is {"ok": true,
+"device": {...}}. Exits nonzero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -1527,6 +1543,45 @@ def same_meshes(a, b):
                                       err_msg=name)
 
 
+def build_mesh_paths(path, device, log=log):
+    """build_mesh of one gmsh file with numpy on the host and on
+    `device` (mesh/geometry.py) in turn, each timed: the face order and
+    every integer field must be equal, the geometry within rtol 1e-12,
+    but for the permeability direction of a face whose two largest
+    normal components tie (argmax then follows round-off, as between
+    the two packages). Returns {"numpy": s, "device": s}."""
+    from waiwera_tpu_torch.mesh import gmsh
+
+    split, meshes = {}, {}
+    for which, dev in (("numpy", None), ("device", device)):
+        sink = {}
+        with timed_calls([(gmsh, "build_mesh")], sink):
+            meshes[which] = gmsh.read_gmsh(path, device=dev)
+        split[which] = sink["build_mesh"]
+    a, b = meshes["device"], meshes["numpy"]
+    for name in ("face_cells", "exterior_face_cell", "is_ghost"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                      err_msg=name)
+    for name in ("cell_centroid", "cell_volume", "face_area", "face_normal",
+                 "face_centroid", "face_distance", "face_distance12",
+                 "face_gravity_normal", "exterior_face_centroid",
+                 "exterior_face_normal", "exterior_face_area"):
+        y = getattr(b, name)
+        np.testing.assert_allclose(getattr(a, name), y, rtol=1e-12,
+                                   atol=1e-12 * np.abs(y).max(),
+                                   err_msg=name)
+    pa, pb = a.face_permeability_direction, b.face_permeability_direction
+    diff = np.flatnonzero(pa != pb)
+    n = np.abs(b.face_normal[diff])
+    np.testing.assert_allclose(n[np.arange(len(diff)), pa[diff]],
+                               n[np.arange(len(diff)), pb[diff]], rtol=1e-12)
+    log(f"phase 10 (a): build_mesh {split['numpy']:.3f} s with numpy, "
+        f"{split['device']:.3f} s on {device}; face order equal, geometry "
+        f"within rtol 1e-12 ({len(diff)} tied permeability directions "
+        "differ)")
+    return split
+
+
 def same_run(a, b, what, rtol=2e-5):
     """Raise unless two runs, each (tries, final state), took the same
     tries (sizes to rtol 1e-12) and reached final states within rtol,
@@ -1573,6 +1628,7 @@ def mesh_file_phase(workdir, counters, w_run, log=log):
     rec["file_bytes"] = os.path.getsize(path)
     if rec["route"] != "ell" or ts.sim.system.bands is not None:
         raise RuntimeError(f"phase 10 (a) took the {rec['route']} route")
+    rec["build_mesh_s"] = build_mesh_paths(path, ts.sim.device, log=log)
     if not rec["fd_error"] < 1e-5:
         raise RuntimeError(f"phase 10 (a): fd error {rec['fd_error']}")
     if rec["unknowns"] != 2 * 2 * nx * ny * nz:
@@ -1791,18 +1847,25 @@ def scatter_step_cost(pairs=12, size=FLAGSHIP, device=None, log=log):
     return rec
 
 
-def determinism_check(workdir, counters, runs=2, log=log):
+def determinism_check(workdir, counters, runs=2, log=log, ranks_runs=()):
     """ROADMAP C15: phase 8 (c) "w" and the production field of phase 9
     at 48 x 32 x 32 (its group sums, separators and tracer solves),
     each `runs` times in the default mode and `runs` times under
     torch.use_deterministic_algorithms(True, warn_only=True), with their
     Krylov iterations, matvecs and wall; the ops that warn in the
-    deterministic mode are listed. Raises if the runs of one model differ
-    in tries, Newton or Krylov iterations, matvecs or tracer iterations.
-    Returns the records."""
+    deterministic mode are listed; and ranks_runs, the records of phase
+    11 (b)'s repeated run over ranks. Raises if the runs of one model
+    differ in tries, Newton or Krylov iterations, matvecs or tracer
+    iterations. Returns the records."""
     from waiwera_tpu_torch.bench import REDUCED
 
     records = []
+    for rec in ranks_runs:
+        log(f"C15 run {json.dumps(rec)}")
+        records.append(rec)
+    if len({(r["tries"], r["newton"], r["krylov"], r["matvecs"],
+             tuple(r["tracer_iterations"])) for r in ranks_runs}) > 1:
+        raise RuntimeError(f"C15: the runs over ranks differ: {ranks_runs}")
     for model, cfg in (("w", eos_model_config("w", *REDUCED, steps=3)),
                        ("network", network_model_config(*REDUCED,
                                                         steps=3))):
@@ -1842,6 +1905,183 @@ def determinism_check(workdir, counters, runs=2, log=log):
             raise RuntimeError(f"C15: the runs of {model} differ: "
                                f"{sorted(counts)}")
     return records
+
+
+# phase 11: the multi-device run, ranks sharing the card through gloo
+RANKS = 4
+MULTI_RTOL_A = (1e-8, 1e-10)  # tests/test_parallel.py:193-196
+MULTI_RTOL = 2e-5  # tests/test_parallel.py:387-403
+
+
+def ranks_run(labels, cfgs, devices, log=log):
+    """Each config over len(devices) ranks in turn, in one spawn of the
+    ranks (parallel/launch.py, parallel/runs.py run_configs). Logs each
+    run's and rank's set-up, run loop, host syncs per try, collectives,
+    launches and matvecs. Returns (per config the ranks' results, the
+    wall seconds of the spawn)."""
+    from waiwera_tpu_torch.parallel import launch, runs
+
+    t0 = time.perf_counter()
+    per_rank = launch.run(runs.run_configs, devices, cfgs)
+    wall = time.perf_counter() - t0
+    out = []
+    for k, label in enumerate(labels):
+        res = [r[k] for r in per_rank]
+        for r, x in enumerate(res):
+            st = x["stats"]
+            syncs = (st["host_syncs_step"] + st["host_syncs_timestepper"]
+                     + st["host_syncs_tracer"])
+            log(f"phase 11 ({label}) rank {r} on {devices[r]}: set-up "
+                f"{x['setup_seconds']:.2f} s, run loop "
+                f"{x['run_seconds']:.2f} s, tries {st['tries']}, Newton "
+                f"{st['newton_iterations']}, Krylov "
+                f"{st['linear_iterations']}, matvecs {st['matvecs']}, host "
+                f"syncs per try {syncs / st['tries']:.1f}, collectives "
+                f"{x['collectives']} taking "
+                f"{ {k: round(v, 3) for k, v in x['collective_seconds'].items()} }"
+                f" s, launches {x['launches']}, route {x['route']}")
+            if not x["ok"]:
+                raise RuntimeError(f"phase 11 ({label}): rank {r} aborted")
+            if not np.array_equal(x["y"], res[0]["y"]):
+                raise RuntimeError(f"phase 11 ({label}): ranks 0 and {r} "
+                                   "hold different global states")
+        out.append(res)
+    return out, wall
+
+
+def against_one_rank(label, res, ts1, rtol, atol=0.0, tracers=False):
+    """The ranks' run against the same model on one rank: the same tries
+    (sizes to rtol 1e-12) and Newton iterations, y (and the tracers)
+    within rtol / atol."""
+    r0 = res[0]
+    if [c for _, c in r0["tried"]] != [c for _, c in ts1.tried]:
+        raise RuntimeError(f"phase 11 ({label}): tries {r0['tried']} against "
+                           f"one rank's {ts1.tried}")
+    np.testing.assert_allclose([d for d, _ in r0["tried"]],
+                               [d for d, _ in ts1.tried], rtol=1e-12)
+    if r0["stats"]["newton_iterations"] != ts1.stats["newton_iterations"]:
+        raise RuntimeError(
+            f"phase 11 ({label}): Newton {r0['stats']['newton_iterations']} "
+            f"against one rank's {ts1.stats['newton_iterations']}")
+    np.testing.assert_allclose(r0["y"], ts1.final_y.cpu().numpy(), rtol=rtol,
+                               atol=atol, err_msg=f"phase 11 ({label}) y")
+    if tracers:
+        x1 = ts1.final_tracer.cpu().numpy()
+        np.testing.assert_allclose(r0["tracer"], x1, rtol=rtol,
+                                   atol=1e-6 * float(np.abs(x1).max()),
+                                   err_msg=f"phase 11 ({label}) tracers")
+
+
+def check_rank_launches(label, res, kernel):
+    """On every rank the kernel's launches equal the rank's Krylov
+    matvecs, and are more than 0."""
+    for r, x in enumerate(res):
+        n, mv = x["launches"][kernel], x["stats"]["matvecs"]
+        if n <= 0 or n != mv:
+            raise RuntimeError(f"phase 11 ({label}) rank {r}: {kernel} "
+                               f"launches {n} != matvecs {mv}")
+
+
+def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
+                     reduced=None, wedge=WEDGE_REDUCED, log=log):
+    """Phase 11: the multi-device run, RANKS ranks sharing one device
+    (gloo), each against the same model on one rank of that device.
+    (a) phase 8 (a)'s default-EOS model at `flagship`, bjacobi, 2 steps;
+    (b) phase 9's production field at `reduced` with asm (the local DILU,
+    restricted additive Schwarz), 3 steps, twice (the counts must
+    repeat); (c) phase 10 (b)'s wedge model at `wedge` from gmsh 4.1
+    binary, lgmres + asm, 3 steps; (d) where there are 2 cards or more,
+    (a) over NCCL with one rank per card. Returns (launches summed over
+    every rank of every run, the two runs of (b) as C15 records)."""
+    from waiwera_tpu_torch.bench import REDUCED
+
+    reduced = reduced or REDUCED
+    on_card = torch.device(device).type == "cuda"
+    total = {"dia_spmv": 0, "dia_spmv_f64": 0, "stream_scale": 0}
+
+    def add(res):
+        for x in res:
+            for k, n in x["launches"].items():
+                total[k] += n
+
+    def one_rank(label, cfg, steps):
+        return model_run(workdir, None, steps=steps,
+                         device=None if on_card else device, use_h5=False,
+                         log=log, checkpoint=None, config=cfg,
+                         name=f"ranks1_{label}")[0]
+
+    shared = [device] * RANKS
+    # (a) the flagship, 2 steps; (b) the production field with asm, twice;
+    # (c) the wedge model from gmsh on the ELL route: one spawn
+    cfg_a = eos_model_config("we", *flagship, steps=2)
+    cfg_b = network_model_config(*reduced, steps=3)
+    cfg_b["time"]["step"]["solver"] = {
+        "linear": {"preconditioner": {"type": "asm"}}}
+    nx, ny, nz = wedge
+    verts, wedges, pos = wedge_mesh(nx, ny, nz)
+    path = os.path.join(workdir, "wedge_ranks.msh")
+    write_gmsh(path, verts, [("wedge", wedges)], version="4.1", binary=True)
+    cfg_c = wedge_model_config(path, nx, ny, nz, pos, steps=3,
+                               solver=LGMRES_ASM)
+    (res_a, res_b1, res_b2, res_c), wall = ranks_run(
+        ["a", "b1", "b2", "c"], [cfg_a, cfg_b, cfg_b, cfg_c], shared, log=log)
+    log(f"phase 11: {RANKS} ranks on {device}, one spawn for (a)-(c), wall "
+        f"{wall:.2f} s")
+    for res in (res_a, res_b1, res_b2, res_c):
+        add(res)
+
+    if res_a[0]["route"] != "bands":
+        raise RuntimeError(f"phase 11 (a) took the {res_a[0]['route']} route")
+    if on_card:
+        check_rank_launches("a", res_a, "dia_spmv_f64")
+    ts1 = one_rank("a", cfg_a, 2)
+    against_one_rank("a", res_a, ts1, *MULTI_RTOL_A)
+    log(f"phase 11 (a): run loop {res_a[0]['run_seconds']:.2f} s on "
+        f"{RANKS} ranks against {sum(ts1.stats['step_seconds']):.2f} s on "
+        f"one; tries, Newton and y (rtol {MULTI_RTOL_A[0]}) equal to one "
+        "rank's")
+    del ts1
+
+    runs = []
+    for res in (res_b1, res_b2):
+        st = res[0]["stats"]
+        runs.append({"model": f"network {RANKS} ranks", "mode": "default",
+                     "krylov": st["linear_iterations"],
+                     "matvecs": st["matvecs"],
+                     "newton": st["newton_iterations"], "tries": st["tries"],
+                     "tracer_iterations": st["tracer_iterations"],
+                     "run_loop_s": res[0]["run_seconds"]})
+    ts1 = one_rank("b", cfg_b, 3)
+    against_one_rank("b", res_b2, ts1, MULTI_RTOL, atol=0.0, tracers=True)
+    log(f"phase 11 (b): tries, Newton, y and tracers (rtol {MULTI_RTOL}) "
+        f"equal to one rank's; counts (krylov, matvecs) "
+        f"{[(r['krylov'], r['matvecs']) for r in runs]}")
+    del ts1
+
+    if res_c[0]["route"] != "ell":
+        raise RuntimeError(f"phase 11 (c) took the {res_c[0]['route']} route")
+    ts1 = one_rank("c", cfg_c, 3)
+    against_one_rank("c", res_c, ts1, MULTI_RTOL)
+    log(f"phase 11 (c): {nx * ny * nz * 2} wedges over {RANKS} ranks; "
+        f"tries, Newton and y (rtol {MULTI_RTOL}) equal to one rank's")
+    del ts1
+
+    # (d) NCCL, one rank per card
+    cards = torch.cuda.device_count() if on_card else 0
+    if cards >= 2:
+        d = min(RANKS, cards)
+        (res,), wall = ranks_run(["d"], [cfg_a],
+                                 [f"cuda:{i}" for i in range(d)], log=log)
+        check_rank_launches("d", res, "dia_spmv_f64")
+        add(res)
+        ts1 = one_rank("d", cfg_a, 2)
+        against_one_rank("d", res, ts1, *MULTI_RTOL_A)
+        log(f"phase 11 (d): {d} ranks over NCCL, wall {wall:.2f} s")
+        del ts1
+    else:
+        log(f"phase 11 (d): not run, for want of a second card ({cards} "
+            "CUDA device)")
+    return total, runs
 
 
 def main() -> int:
@@ -2011,10 +2251,16 @@ def main() -> int:
         mesh_records, mesh_counts = mesh_file_phase(workdir, counters, w_run)
         log(f"phase 10 (mesh files) {time.perf_counter() - t0:.2f} s; "
             f"launches {mesh_counts}")
+        # 11. the multi-device run: ranks sharing the card
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rank_counts, rank_runs = multi_rank_phase(workdir)
+        log(f"phase 11 (multi-device) {time.perf_counter() - t0:.2f} s; "
+            f"launches over every rank {rank_counts}")
         # ROADMAP C15: do card runs repeat their own counts, and what
         # does the fixed-order scatter-sum cost?
         t0 = time.perf_counter()
-        c15 = determinism_check(workdir, counters)
+        c15 = determinism_check(workdir, counters, ranks_runs=rank_runs)
         scatter_cost()
         scatter_step_cost()
     log(f"C15 check {time.perf_counter() - t0:.2f} s; (krylov, matvecs) "
@@ -2040,6 +2286,7 @@ def main() -> int:
             "launches_eos_models": eos_counts[name],
             "launches_network_model": net_counts[name],
             "launches_mesh_file_models": mesh_counts[name],
+            "launches_multi_rank": rank_counts[name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],

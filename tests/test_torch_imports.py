@@ -39,14 +39,17 @@ _SCRIPT = textwrap.dedent(
 # the other equations of state with their thermodynamics and tables, the
 # source network, tracers and the Krylov solvers, and the BSR
 # preconditioners, the Jacobian check, the mesh file readers and the
-# listing reader
+# listing reader, the multi-device run and the device mesh geometry
 NEW_MODULES = ("utils.config", "utils.logging", "sim.output",
                "sim.timestepper", "cli", "runner", "mesh.rect",
                "mesh.device", "utils.interpolation", "thermo.ifc67",
                "thermo.salt", "eos.w", "eos.we", "eos.wse", "eos.wsge",
                "sim.network", "sim.tracer", "solver.krylov",
                "solver.precond", "solver.fdcheck", "mesh.gmsh",
-               "mesh.exodus", "utils.autough2")
+               "mesh.exodus", "utils.autough2", "parallel",
+               "parallel.graph", "parallel.partition", "parallel.comm",
+               "parallel.launch", "parallel.spmd", "parallel.runs",
+               "mesh.geometry")
 
 
 def _imported():

@@ -151,3 +151,26 @@ def test_read_listing_matches_jax(tmp_path):
     assert list(tables) == ["Pressure", "Temperature", "Vapour saturation"]
     np.testing.assert_allclose(tables["Pressure"][1], [1.01e6, 1.111e6,
                                                        1.2625e6])
+
+
+def test_readers_on_a_device_match_the_host_path(tmp_path):
+    """gmsh and ExodusII read with device= (the device geometry path,
+    here on the CPU device) give the host path's mesh and the JAX
+    package's."""
+    from waiwera_tpu.mesh.exodus import read_exodus as jexo
+    from waiwera_tpu.mesh.gmsh import read_gmsh as jmsh
+    from waiwera_tpu_torch.mesh.exodus import read_exodus
+    from waiwera_tpu_torch.mesh.gmsh import read_gmsh
+
+    for name, verts, blocks in _cases():
+        msh = str(tmp_path / f"{name}.msh")
+        exo = str(tmp_path / f"{name}.exo")
+        write_gmsh(msh, verts, blocks, version="4.1", binary=True)
+        write_exodus(exo, verts, blocks)
+        for read, jread, path in ((read_gmsh, jmsh, msh),
+                                  (read_exodus, jexo, exo)):
+            md = read(path, device="cpu")
+            np.testing.assert_array_equal(md.face_cells,
+                                          read(path).face_cells)
+            _assert_same_mesh(md, read(path))
+            _assert_same_mesh(md, jread(path))

@@ -3,9 +3,13 @@ waiwera.F90): reads a JSON model file, builds the simulation, runs the
 timestepper, writes HDF5 output and a YAML log.
 
 Usage: python -m waiwera_tpu_torch.cli model.json [--device cpu]
+       [--devices N]
 
 The run takes the CUDA device unless --device names another; without a
-CUDA device and without --device it raises. HDF5 output needs h5py.
+CUDA device and without --device it raises. --devices N runs the model
+domain-decomposed over N ranks (the reference's mpiexec -np N): one
+CUDA device per rank, or N CPU ranks with --device cpu. HDF5 output
+needs h5py.
 """
 
 from __future__ import annotations
@@ -58,35 +62,44 @@ def _profiled(run, profile_dir: str):
 
 
 def run_json(filename: str, echo_log: bool = False, device=None,
-             num_devices: int = 0, overrides=None, profile_dir=None):
-    """Load a JSON model file and run it. Returns the Timestepper.
+             num_devices: int = 0, overrides=None, profile_dir=None,
+             devices=None):
+    """Load a JSON model file and run it. Returns the Timestepper, or
+    for a run over several ranks rank 0's RunSummary.
 
     device: None takes the CUDA device (an error where there is none),
     "cpu" runs on the CPU. num_devices > 1 (or config["parallel"]
-    ["devices"] > 1 when num_devices is 0) would run domain-decomposed;
-    that is not ported yet. overrides: list of "path.to.key=value"
-    strings layered over the JSON before anything reads it.
+    ["devices"] > 1 when num_devices is 0) runs domain-decomposed over
+    that many ranks (parallel/launch.py): one CUDA card each, an error
+    where there are fewer cards, or CPU ranks with device "cpu";
+    devices= names each rank's device (a card may repeat). Rank 0
+    writes the HDF5 output and the YAML log. overrides: list of
+    "path.to.key=value" strings layered over the JSON before anything
+    reads it.
     """
+    config, out_filename, log_filename = _prepare(filename, overrides)
+    cfg_devices = int((config.get("parallel", {}) or {}).get("devices", 1))
+    eff_devices = num_devices if num_devices else cfg_devices
+    if eff_devices > 1:
+        from waiwera_tpu_torch.parallel import launch
+        from waiwera_tpu_torch.parallel.comm import resolve_devices
+
+        devs = resolve_devices(eff_devices, device, devices)
+        return launch.run(_run_rank, devs, config, out_filename,
+                          log_filename, echo_log, profile_dir)[0]
+    return _run(config, out_filename, log_filename, echo_log, device,
+                profile_dir)
+
+
+def _prepare(filename: str, overrides):
+    """(config, output file name, log file name or None) of a JSON model
+    file, with the overrides applied and the mesh and restart file
+    names made relative to the JSON file."""
     base = os.path.dirname(os.path.abspath(filename))
     with open(filename) as f:
         config = json.load(f)
     _apply_overrides(config, overrides)
 
-    cfg_devices = int((config.get("parallel", {}) or {}).get("devices", 1))
-    eff_devices = num_devices if num_devices else cfg_devices
-    if eff_devices > 1:
-        raise NotImplementedError(
-            f"a run over {eff_devices} devices is not ported yet "
-            "(ROADMAP A15)"
-        )
-
-    from waiwera_tpu_torch.sim.output import HDF5Output
-    from waiwera_tpu_torch.sim.simulation import Simulation
-    from waiwera_tpu_torch.sim.timestepper import Timestepper
-    from waiwera_tpu_torch.utils.config import TrackedConfig
-    from waiwera_tpu_torch.utils.logging import Logger
-
-    # mesh / restart filenames are relative to the JSON file
     mesh_cfg = config.get("mesh")
     if isinstance(mesh_cfg, str):
         config["mesh"] = os.path.join(base, mesh_cfg)
@@ -111,20 +124,46 @@ def run_json(filename: str, echo_log: bool = False, device=None,
             "filename",
             os.path.splitext(out_filename)[0] + ".yaml",
         )
+    return config, out_filename, log_filename
 
+
+def _run(config, out_filename, log_filename, echo_log, device, profile_dir,
+         comm=None):
+    """Build the simulation of `config` and run its timestepper; over
+    ranks (comm given) the global simulation is built on the CPU and
+    run through DistributedSimulation, and ranks other than 0 write no
+    output and no log."""
+    from waiwera_tpu_torch.sim.output import HDF5Output
+    from waiwera_tpu_torch.sim.simulation import Simulation
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+    from waiwera_tpu_torch.utils.config import TrackedConfig
+    from waiwera_tpu_torch.utils.logging import Logger
+
+    lcfg = config.get("logfile", {}) or {}
+    writer = comm is None or comm.rank == 0
     # default-value tracking on every config read (fson_mpi.F90:18-56)
     config = TrackedConfig(config)
-    sim = Simulation(config, device=device)
+    if comm is None:
+        sim = Simulation(config, device=device)
+    else:
+        from waiwera_tpu_torch.parallel.spmd import (
+            DistributedSimulation,
+            NullOutput,
+        )
+
+        sim = DistributedSimulation(Simulation(config, device="cpu"), comm)
     logger = Logger(
-        filename=log_filename, echo=echo_log or bool(lcfg.get("echo"))
+        filename=log_filename if writer else None,
+        echo=writer and (echo_log or bool(lcfg.get("echo"))),
     )
     try:
-        output = HDF5Output(out_filename, sim)
+        output = HDF5Output(out_filename, sim) if writer else NullOutput(sim)
         try:
             ts = Timestepper(config, sim, output=output, logger=logger)
             config.defaults.log_to(logger)
             if profile_dir:
-                _profiled(ts.run, profile_dir)
+                _profiled(ts.run, os.path.join(profile_dir, f"rank{comm.rank}")
+                          if comm is not None else profile_dir)
             else:
                 ts.run()
         finally:
@@ -132,6 +171,24 @@ def run_json(filename: str, echo_log: bool = False, device=None,
     finally:
         logger.close()
     return ts
+
+
+class RunSummary:
+    """What a run over ranks returns to the caller: whether it aborted,
+    its final time and steps, and rank 0's Timestepper counts."""
+
+    def __init__(self, ts):
+        self.aborted = ts.aborted
+        self.final_time = ts.final_time
+        self.taken = ts.taken
+        self.stats = ts.stats
+
+
+def _run_rank(comm, config, out_filename, log_filename, echo_log,
+              profile_dir):
+    ts = _run(config, out_filename, log_filename, echo_log, comm.device,
+              profile_dir, comm=comm)
+    return RunSummary(ts)
 
 
 def main(argv=None):
@@ -153,8 +210,8 @@ def main(argv=None):
     )
     parser.add_argument(
         "--devices", type=int, default=0,
-        help="run domain-decomposed over N devices (like mpiexec -np N; "
-        "not ported yet)",
+        help="run domain-decomposed over N ranks (like mpiexec -np N): "
+        "one CUDA device each, or N CPU ranks with --device cpu",
     )
     parser.add_argument(
         "--profile", default=None, metavar="DIR",

@@ -201,35 +201,12 @@ def _face_geometry_3d(v3: np.ndarray, fv: np.ndarray):
     return area_n, cent
 
 
-def build_mesh(
-    vertices: np.ndarray,
-    cell_blocks: Sequence[Tuple[str, np.ndarray]],
-    gravity=None,
-    radial: bool = False,
-    thickness: float = 1.0,
-) -> Mesh:
-    """Build mesh connectivity and FV geometry from vertices [nv, dim]
-    and cells: cell_blocks [(element_type, connectivity [nc_e, nvpe])],
-    element types "triangle" and "quad" in 2-D, "tetra", "pyramid",
-    "wedge" and "hexahedron" in 3-D, vertex indices 0-based. Cells are
-    numbered block by block in input order (this is the natural order).
-    Gravity defaults to 9.8 m/s2 down the last mesh dimension."""
-    vertices = np.asarray(vertices, dtype=np.float64)
-    dim = vertices.shape[1]
-    g3 = np.zeros(3)
-    if gravity is None:
-        g3[dim - 1] = -9.8
-    else:
-        g = np.asarray(gravity, dtype=np.float64)
-        g3[: len(g)] = g
-
-    cell_blocks = [(etype, np.asarray(c, dtype=np.int64))
-                   for etype, c in cell_blocks]
-    sizes = [len(c) for _, c in cell_blocks]
-    cell_offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
-    num_cells = int(sum(sizes))
-    v3 = _pad3(vertices)
-
+def _geometry(v3, dim, cell_blocks, cell_offsets, num_cells):
+    """Cell and face geometry with numpy on the host (the reference
+    path of build_mesh): (cell_volume, cell_centroid, cell_a, cell_b,
+    area_normal, face_centroid, ext_cell, ext_area_normal,
+    ext_centroid), interior normals oriented from cell_a to cell_b and
+    exterior normals outward."""
     # ---- cell geometry -------------------------------------------
     cell_volume = np.zeros(num_cells)
     cell_centroid = np.zeros((num_cells, 3))
@@ -284,6 +261,55 @@ def build_mesh(
     d_out = ext_centroid - cell_centroid[ext_cell]
     eflip = np.einsum("ij,ij->i", d_out, ext_area_normal) < 0
     ext_area_normal[eflip] *= -1.0
+
+    return (cell_volume, cell_centroid, cell_a, cell_b, area_normal,
+            fcentroid, ext_cell, ext_area_normal, ext_centroid)
+
+
+def build_mesh(
+    vertices: np.ndarray,
+    cell_blocks: Sequence[Tuple[str, np.ndarray]],
+    gravity=None,
+    radial: bool = False,
+    thickness: float = 1.0,
+    device=None,
+) -> Mesh:
+    """Build mesh connectivity and FV geometry from vertices [nv, dim]
+    and cells: cell_blocks [(element_type, connectivity [nc_e, nvpe])],
+    element types "triangle" and "quad" in 2-D, "tetra", "pyramid",
+    "wedge" and "hexahedron" in 3-D, vertex indices 0-based. Cells are
+    numbered block by block in input order (this is the natural order).
+    Gravity defaults to 9.8 m/s2 down the last mesh dimension.
+
+    device: None computes the geometry and the face-key sort with numpy
+    on the host (the reference path); a torch device computes them
+    there in f64 (mesh/geometry.py: the same face order, geometry equal
+    to rounding). The Mesh is host numpy either way."""
+    vertices = np.asarray(vertices, dtype=np.float64)
+    dim = vertices.shape[1]
+    g3 = np.zeros(3)
+    if gravity is None:
+        g3[dim - 1] = -9.8
+    else:
+        g = np.asarray(gravity, dtype=np.float64)
+        g3[: len(g)] = g
+
+    cell_blocks = [(etype, np.asarray(c, dtype=np.int64))
+                   for etype, c in cell_blocks]
+    sizes = [len(c) for _, c in cell_blocks]
+    cell_offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    num_cells = int(sum(sizes))
+    v3 = _pad3(vertices)
+
+    if device is None:
+        geom = _geometry(v3, dim, cell_blocks, cell_offsets, num_cells)
+    else:
+        from waiwera_tpu_torch.mesh.geometry import mesh_geometry
+
+        geom = mesh_geometry(v3, dim, cell_blocks, cell_offsets, num_cells,
+                             device)
+    (cell_volume, cell_centroid, cell_a, cell_b, area_normal, fcentroid,
+     ext_cell, ext_area_normal, ext_centroid) = geom
 
     area = np.linalg.norm(area_normal, axis=1)
     ext_area = np.linalg.norm(ext_area_normal, axis=1)

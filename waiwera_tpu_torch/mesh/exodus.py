@@ -46,7 +46,7 @@ def _element_type(etype) -> str:
 
 
 def read_exodus(filename: str, gravity=None, radial: bool = False,
-                thickness: float = 1.0) -> Mesh:
+                thickness: float = 1.0, device=None) -> Mesh:
     with open(filename, "rb") as fh:
         magic = fh.read(4)
     if magic[:3] == b"\x89HD" or magic[1:4] == b"HDF":
@@ -54,7 +54,7 @@ def read_exodus(filename: str, gravity=None, radial: bool = False,
     else:
         coords, blocks = _read_exodus_netcdf3(filename)
     return build_mesh(coords, blocks, gravity=gravity, radial=radial,
-                      thickness=thickness)
+                      thickness=thickness, device=device)
 
 
 def _read_exodus_netcdf3(filename: str):

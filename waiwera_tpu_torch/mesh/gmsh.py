@@ -70,7 +70,7 @@ def _read_sections(data: bytes) -> Dict[str, Tuple[int, int]]:
 
 
 def read_gmsh(filename: str, gravity=None, radial: bool = False,
-              thickness: float = 1.0) -> Mesh:
+              thickness: float = 1.0, device=None) -> Mesh:
     with open(filename, "rb") as f:
         data = f.read()
     sections = _read_sections(data)
@@ -94,7 +94,8 @@ def read_gmsh(filename: str, gravity=None, radial: bool = False,
     else:
         nodes, elements = _read_msh22_ascii(data, sections)
     return _mesh_from_elements(nodes, elements, gravity=gravity,
-                               radial=radial, thickness=thickness)
+                               radial=radial, thickness=thickness,
+                               device=device)
 
 
 def _mesh_from_elements(nodes: Nodes, elements: Elements, **kw) -> Mesh:

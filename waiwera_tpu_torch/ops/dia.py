@@ -117,27 +117,33 @@ def _periodic_segments(rows: np.ndarray):
     return segs
 
 
-def hybrid_split(face_cells: np.ndarray, is_ghost: np.ndarray,
-                 num_rows: int, block_size: int):
-    """(DIAStructure, f_live) of the banded prefix faces[:f_live] of a
-    mesh that is banded except for a face tail, or None.
+class FacePlan(NamedTuple):
+    """The JAX package's periodic-slice face plan (face_plan_direct):
+    per positive offset in face order, entries (d, f0, S, q, p, r0) —
+    faces f0..f0+S*q join cells r0 + m*p + j and that plus d; f_live
+    faces are covered, the rest is the indexed tail. Plans compare
+    equal exactly when the JAX package's do."""
 
-    f_live follows the JAX package's cover rule (face_plan_direct,
-    waiwera_tpu/ops/dia.py:345-403) exactly: runs of one positive offset
-    are taken in face order while they split into few periodic row
-    segments; the first ghost face, repeated offset, unproductive run
-    (fewer than 8 faces per segment), exhausted segment budget or
-    out-of-range run ends the prefix. The hybrid DILU factors the banded
-    part only, so the split must be the JAX package's. None when the
-    prefix covers less than half the faces or needs more than MAX_BANDS
-    bands (the JAX package then takes its BSR/ELL route)."""
+    entries: tuple
+    f_live: int
+    pad: int
+
+
+def face_plan_direct(face_cells: np.ndarray, is_ghost: np.ndarray,
+                     num_rows: int) -> Optional[FacePlan]:
+    """The JAX package's face_plan_direct (waiwera_tpu/ops/dia.py:
+    345-403): runs of one positive offset are taken in face order while
+    they split into few periodic row segments; the first ghost face,
+    repeated offset, unproductive run (fewer than 8 faces per segment),
+    exhausted segment budget or out-of-range run ends the prefix. None
+    when the prefix covers less than half the faces."""
     a = np.asarray(face_cells[:, 0], np.int64)
     b = np.asarray(face_cells[:, 1], np.int64)
     is_ghost = np.asarray(is_ghost)
     live = ~(is_ghost[a] | is_ghost[b])
     F = len(a)
     d = b - a
-    n_segs = 0
+    entries = []
     used = set()
     f = 0
     while f < F:
@@ -152,21 +158,49 @@ def hybrid_split(face_cells: np.ndarray, is_ghost: np.ndarray,
         segs = _periodic_segments(a[f:end])
         if segs is None or (end - f) < 8 * len(segs):
             break
-        if n_segs + len(segs) > MAX_PLAN_SEGMENTS:
+        if len(entries) + len(segs) > MAX_PLAN_SEGMENTS:
             break
         if any(r0 + off + (S - 1) * p + q > num_rows
                for (S, q, p, r0) in segs):
             break
-        n_segs += len(segs)
+        fseg = f
+        for (S, q, p, r0) in segs:
+            entries.append((off, fseg, S, q, p, r0))
+            fseg += S * q
         used.add(off)
         f = end
-    if not used or f < F // 2:
+    if not entries or f < F // 2:
         return None
+    pad = max(dd + p for (dd, f0, S, q, p, r0) in entries)
+    return FacePlan(entries=tuple(entries), f_live=f, pad=pad)
+
+
+def plan_bands(plan: FacePlan, num_rows: int,
+               block_size: int) -> Optional[DIAStructure]:
+    """The bands of a face plan's prefix: offset 0 and +-d of every
+    planned offset; None above MAX_BANDS (the JAX package's
+    hybrid_band_structures)."""
+    used = {e[0] for e in plan.entries}
     offsets = sorted({0} | used | {-o for o in used})
     if len(offsets) > MAX_BANDS:
         return None
     return DIAStructure(offsets=tuple(offsets), num_rows=num_rows,
-                        block_size=block_size), f
+                        block_size=block_size)
+
+
+def hybrid_split(face_cells: np.ndarray, is_ghost: np.ndarray,
+                 num_rows: int, block_size: int):
+    """(DIAStructure, f_live) of the banded prefix faces[:f_live] of a
+    mesh that is banded except for a face tail, or None: the prefix is
+    the JAX package's face plan (face_plan_direct), so the hybrid DILU,
+    which factors the banded part only, is the JAX package's. None
+    when there is no plan or it needs more than MAX_BANDS bands (the
+    JAX package then takes its BSR/ELL route)."""
+    plan = face_plan_direct(face_cells, is_ghost, num_rows)
+    if plan is None:
+        return None
+    bands = plan_bands(plan, num_rows, block_size)
+    return None if bands is None else (bands, plan.f_live)
 
 
 def band_fill(dia: DIAStructure, face_cells: np.ndarray,

@@ -14,6 +14,8 @@ adds only).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -35,6 +37,12 @@ class SegmentSum:
         table = np.full((depth, num_rows), self.size, np.int64)
         table[slot, index[order]] = order
         self.slots = [torch.as_tensor(t, device=device) for t in table]
+
+    def to(self, device) -> "SegmentSum":
+        """The same sum with its tables on `device`."""
+        out = copy.copy(self)
+        out.slots = [t.to(device) for t in self.slots]
+        return out
 
     def add(self, out: torch.Tensor, values: torch.Tensor,
             dim: int = 0) -> torch.Tensor:

@@ -13,8 +13,8 @@ environment. This module reproduces the useful surface —
 - run_waiwera(filename, ...): programmatic run (the
   DockerEnv.run_waiwera analogue); num_processes maps to the
   reference's mpiexec `-np` (run.rst:140-144) and is passed on as
-  --devices, which raises for more than one until the multi-device run
-  is ported.
+  --devices: that many ranks, one CUDA device each (CPU ranks with
+  --device cpu).
 - main(): the console entry point mirroring `waiwera-dkr`'s argument
   set where it still makes sense (`-np/--num_processes` kept as an
   alias of --devices).
@@ -45,9 +45,10 @@ def run_waiwera(
     """Run a model from Python (DockerEnv.run_waiwera analogue,
     pywaiwera/docker.py:538-614). Returns the CLI's exit code.
 
-    num_processes: device count for domain decomposition (the `-np`
-    of the reference's mpiexec runs). device: torch device, by default
-    the CUDA device. Extra CLI arguments (e.g. `--set key=value`) pass
+    num_processes: rank count for domain decomposition (the `-np` of
+    the reference's mpiexec runs; one CUDA device per rank, or CPU
+    ranks with device "cpu"). device: torch device, by default the CUDA
+    device. Extra CLI arguments (e.g. `--set key=value`) pass
     through to the CLI parser.
     """
     from waiwera_tpu_torch import cli

@@ -35,6 +35,8 @@ No value crosses to the host inside `flows`.
 
 from __future__ import annotations
 
+import copy
+
 import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -803,6 +805,25 @@ class SourceNetwork:
             pending_r = rest
         self.reinjectors = order_r
         self._name_to_idx = name_to_idx
+
+    def to(self, device) -> "SourceNetwork":
+        """A copy of the network whose tensors live on `device` (its
+        host-side tables are shared)."""
+        net = copy.copy(self)
+        net.device = torch.device(device)
+        a = self.arrays
+        net.arrays = a._replace(
+            cell=a.cell.to(device),
+            injection_component=a.injection_component.to(device),
+            production_component=a.production_component.to(device),
+            volume=a.volume.to(device),
+            cell_sum=a.cell_sum.to(device),
+        )
+        net._direction = self._direction.to(device)
+        net._deliv_mask = self._deliv_mask.to(device)
+        net._recharge_mask = self._recharge_mask.to(device)
+        net._build_stacks()
+        return net
 
     # -- initial-state-dependent setup --------------------------------
 

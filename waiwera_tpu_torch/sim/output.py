@@ -31,6 +31,21 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def flux_fields(simulation) -> list:
+    """[(name, column)] of the requested /face_fields flux fields:
+    opt-in, empty by default (flow_simulation.F90:504,
+    setup_output.rst "flux")."""
+    cfg = (simulation.config.get("output", {}) or {}).get("fields", {}) or {}
+    want = cfg.get("flux", [])
+    want = [want] if isinstance(want, str) else list(want or [])
+    eos = simulation.eos
+    names = list(eos.component_names)
+    if not eos.isothermal:
+        names.append("energy")
+    names += list(eos.phase_names[: eos.num_mobile_phases])
+    return [(nm, k) for k, nm in enumerate(names) if nm in want]
+
+
 class HDF5Output:
     def __init__(self, filename: str, simulation, fields=None):
         import h5py
@@ -68,17 +83,7 @@ class HDF5Output:
                 "source",
                 ["natural_cell_index", "component", "rate", "enthalpy"],
             )))
-        # flux (/face_fields) output: opt-in, empty by default
-        # (flow_simulation.F90:504, setup_output.rst "flux")
-        eos = simulation.eos
-        flux_names = list(eos.component_names)
-        if not eos.isothermal:
-            flux_names.append("energy")
-        flux_names += list(eos.phase_names[: eos.num_mobile_phases])
-        want = aslist(cfg.get("flux", []))
-        self.flux_fields = [
-            (nm, k) for k, nm in enumerate(flux_names) if nm in want
-        ]
+        self.flux_fields = flux_fields(simulation)
         self.face_group = None
         if self.flux_fields:
             self.face_group = self.file.create_group("face_fields")

@@ -92,7 +92,7 @@ class Simulation:
 
         mesh_given = mesh is not None
         if mesh is None:
-            mesh = self._mesh_from_config(config)
+            mesh = self._mesh_from_config(config, self.device)
         self.mesh = mesh
         # gravity (flow_simulation.F90:782-847): a scalar g is -g in the
         # last mesh dimension; missing or null is 0 for 2-D meshes and
@@ -145,12 +145,16 @@ class Simulation:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _mesh_from_config(config) -> Mesh:
+    def _mesh_from_config(config, device=None) -> Mesh:
         """The mesh of config["mesh"]: a file name (ExodusII by its
         suffix .exo, .e, .ex2 or .g, gmsh otherwise, with radial and
         thickness), or generated: "type": "column" (dz, area) or
         "rectangular" (dx, dy, dz, radial, thickness). Gravity is set by
-        the caller, once the dimension is known."""
+        the caller, once the dimension is known. A file's geometry is
+        computed on `device` where it is a CUDA device (mesh/geometry.py),
+        with numpy on the host otherwise."""
+        if device is not None and torch.device(device).type != "cuda":
+            device = None
         mesh_cfg = config.get("mesh")
         if mesh_cfg is None:
             raise ValueError("no mesh specified")
@@ -163,10 +167,12 @@ class Simulation:
             if fname.lower().endswith((".exo", ".e", ".ex2", ".g")):
                 from waiwera_tpu_torch.mesh.exodus import read_exodus
 
-                return read_exodus(fname, radial=radial, thickness=thickness)
+                return read_exodus(fname, radial=radial, thickness=thickness,
+                                   device=device)
             from waiwera_tpu_torch.mesh.gmsh import read_gmsh
 
-            return read_gmsh(fname, radial=radial, thickness=thickness)
+            return read_gmsh(fname, radial=radial, thickness=thickness,
+                             device=device)
         if mesh_cfg.get("type") == "column":
             from waiwera_tpu_torch.mesh.rect import column_mesh
 
@@ -495,30 +501,7 @@ class Simulation:
         fluid state and face fluxes at (y, region), which let the
         initial residual skip the f64 EOS chain (not used when rock_in
         replaces the rock)."""
-        system = self.system
-
-        def step(y, region, temperature, lhs_last, lhs_last2, t_last, dt,
-                 dt_last, first, rock_in=None, fluid_last=None,
-                 fluxes_last=None):
-            rock = self.rock if rock_in is None else rock_in
-            t0 = float(t_last)
-            t1 = t0 + float(dt)
-            coeffs = method_coeffs(
-                method, dt, dt_last, first, lhs_last, lhs_last2
-            )
-            initial = None
-            if rock_in is None and fluid_last is not None \
-                    and fluxes_last is not None:
-                initial = (fluid_last, lhs_last, fluxes_last)
-            res = newton_solve(
-                system, y, region, temperature, rock, coeffs, t0, t1,
-                lhs_scale=lhs_last, params=newton_params, initial=initial,
-            )
-            fluid, lhs_new, fluxes = res.fluid, res.lhs, res.fluxes
-            res = res._replace(fluid=None, lhs=None, fluxes=None)
-            return res, fluid, lhs_new, fluxes
-
-        return step
+        return step_function(self.system, self.rock, newton_params, method)
 
     def make_tracer_step_fn(self):
         """The auxiliary tracer solve of one accepted try
@@ -528,37 +511,12 @@ class Simulation:
         t0, t1, dt, dt_last, first, use_bdf2) -> tracer.TracerResult;
         times are Python numbers. The tracer solve sees the static rock,
         as in the JAX package."""
-        from waiwera_tpu_torch.sim import tracer as tracer_mod
-
-        tracers = self.tracers
         network = self.sources
-        npv = self.eos.num_primary_variables
-        pidx = torch.as_tensor(tracers.phase_index, device=self.device)
-
-        def tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
-                        t0, t1, dt, dt_last, first, use_bdf2):
-            rate = arrays = frac = inj = None
-            if network is not None and network.num_sources > 0:
-                rate, _ = network.flows(fluid, t0, t1)
-                arrays = network.arrays
-                cells = arrays.cell
-                frac = fluid.phase_flow_fractions()[cells][:, pidx]
-                inj = network.tracer_injection(t0, t1, like=rate)
-            dt = float(dt)
-            r = dt / float(dt_last)
-            if (not use_bdf2) or float(first) > 0.5:
-                c_al, dt_eff = 1.0, dt
-                b_hist = al_last * x_last
-            else:
-                c_al, dt_eff = 1.0 + 2.0 * r, dt * (r + 1.0)
-                b_hist = ((r + 1.0) ** 2 * al_last * x_last
-                          - r * r * al_last2 * x_last2)
-            return tracer_mod.solve(
-                tracers, self.mesh_dev, fluid, self.rock, fluxes, npv, c_al,
-                dt_eff, b_hist, arrays, rate, frac, inj, self.tracer0,
-            )
-
-        return tracer_step
+        if network is not None and network.num_sources == 0:
+            network = None
+        return tracer_step_function(
+            self.tracers, self.mesh_dev, self.rock, network,
+            self.eos.num_primary_variables, self.tracer0)
 
     def initial_tracer_state(self):
         """(x0, al0): the initial tracers and their balance coefficients
@@ -596,6 +554,70 @@ class Simulation:
         dof = (int(self.mesh.num_interior_cells)
                * self.eos.num_primary_variables)
         return {"total": dof, "min": dof, "max": dof, "imbalance": 0.0}
+
+
+def step_function(system: System, rock: RockState,
+                  newton_params: NewtonParams, method: str):
+    """The one-timestep-try function of Simulation.make_step_fn over
+    `system` (a System, or a rank's LocalSystem) with default rock
+    `rock`."""
+
+    def step(y, region, temperature, lhs_last, lhs_last2, t_last, dt,
+             dt_last, first, rock_in=None, fluid_last=None,
+             fluxes_last=None):
+        t0 = float(t_last)
+        t1 = t0 + float(dt)
+        coeffs = method_coeffs(method, dt, dt_last, first, lhs_last,
+                               lhs_last2)
+        initial = None
+        if rock_in is None and fluid_last is not None \
+                and fluxes_last is not None:
+            initial = (fluid_last, lhs_last, fluxes_last)
+        res = newton_solve(
+            system, y, region, temperature,
+            rock if rock_in is None else rock_in, coeffs, t0, t1,
+            lhs_scale=lhs_last, params=newton_params, initial=initial,
+        )
+        fluid, lhs_new, fluxes = res.fluid, res.lhs, res.fluxes
+        res = res._replace(fluid=None, lhs=None, fluxes=None)
+        return res, fluid, lhs_new, fluxes
+
+    return step
+
+
+def tracer_step_function(tracers, mesh, rock, network, npv: int,
+                         ghost_value, **hooks):
+    """The tracer step of Simulation.make_tracer_step_fn over `mesh`
+    (a simulation's, or a rank's local mesh) with `network` (or None)
+    and Dirichlet values ghost_value; hooks (owned, sync, reduce_sum)
+    go to tracer.solve."""
+    from waiwera_tpu_torch.sim import tracer as tracer_mod
+
+    pidx = torch.as_tensor(tracers.phase_index, device=ghost_value.device)
+
+    def tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
+                    t0, t1, dt, dt_last, first, use_bdf2):
+        rate = arrays = frac = inj = None
+        if network is not None:
+            rate, _ = network.flows(fluid, t0, t1)
+            arrays = network.arrays
+            frac = fluid.phase_flow_fractions()[arrays.cell][:, pidx]
+            inj = network.tracer_injection(t0, t1, like=rate)
+        dt = float(dt)
+        r = dt / float(dt_last)
+        if (not use_bdf2) or float(first) > 0.5:
+            c_al, dt_eff = 1.0, dt
+            b_hist = al_last * x_last
+        else:
+            c_al, dt_eff = 1.0 + 2.0 * r, dt * (r + 1.0)
+            b_hist = ((r + 1.0) ** 2 * al_last * x_last
+                      - r * r * al_last2 * x_last2)
+        return tracer_mod.solve(
+            tracers, mesh, fluid, rock, fluxes, npv, c_al, dt_eff, b_hist,
+            arrays, rate, frac, inj, ghost_value, **hooks,
+        )
+
+    return tracer_step
 
 
 def timestepper_state_from_numpy(y, region, device="cpu"):

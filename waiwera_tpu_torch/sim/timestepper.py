@@ -44,6 +44,10 @@ FINAL = "final"
 RESTORE = "restore"
 
 
+def _identity(x):
+    return x
+
+
 @dataclass
 class Checkpoints:
     """Exact output times (timestepper_checkpoints_type,
@@ -250,6 +254,11 @@ class Timestepper:
             self.adapt_on_input = False
 
         self.step_fn = sim.make_step_fn(self.newton_params, self.method)
+        # reductions over the ranks of a distributed simulation (the
+        # identity on one device), so that every rank takes the same
+        # branch
+        self._reduce_max = getattr(sim, "reduce_max", _identity)
+        self._reduce_any = getattr(sim, "reduce_any", _identity)
         self.tracer_step_fn = (
             sim.make_tracer_step_fn()
             if getattr(sim, "tracers", None) is not None
@@ -286,10 +295,10 @@ class Timestepper:
             return float(num_iterations)
         eps = 1e-3
         self.stats["host_syncs_timestepper"] += 1
-        return float(torch.max(
+        return float(self._reduce_max(torch.max(
             torch.abs(lhs_new - lhs_last)
             / torch.clamp_min(torch.abs(lhs_last), eps)
-        ))
+        )))
 
     @staticmethod
     def _residual_report(res):
@@ -316,7 +325,7 @@ class Timestepper:
         lhs, fluid, err = sim.lhs_at(y, region)
         self.stats = stats_run = self._new_stats()
         stats_run["host_syncs_timestepper"] += 1
-        if bool(torch.any(err & ~sim.mesh_dev.is_ghost)):
+        if bool(self._reduce_any(torch.any(err & ~sim.mesh_dev.is_ghost))):
             raise RuntimeError(
                 "initial fluid property evaluation failed (EOS out of "
                 "range in some cells)"
@@ -612,9 +621,9 @@ class Timestepper:
                 if status == FINAL:
                     finished = True
 
-            if max_wall_seconds is not None and (
-                _walltime.time() - wall0 > max_wall_seconds
-            ):
+            if max_wall_seconds is not None and bool(self._reduce_any(
+                torch.tensor(_walltime.time() - wall0 > max_wall_seconds)
+            )):
                 log.write("warn", "timestepper", "wall_time_limit")
                 break
 
@@ -657,9 +666,12 @@ class Timestepper:
         from waiwera_tpu_torch.solver.system import method_coeffs
 
         sim = self.sim
+        base = getattr(sim, "base", sim)
+        if hasattr(sim, "to_global"):
+            y, region, lhs = (sim.to_global(a) for a in (y, region, lhs))
         coeffs = method_coeffs("beuler", dt, dt, 0.0, lhs, lhs)
-        _, _, _, _, mat = sim.system.residual_and_jacobian(
-            y, region, sim.rock, coeffs, t - dt, t,
+        _, _, _, _, mat = base.system.residual_and_jacobian(
+            y, region, base.rock, coeffs, t - dt, t,
         )
         st = mat.structure
         np.savez(
@@ -733,6 +745,11 @@ class Timestepper:
         output is on, the face fluxes brought into the host mesh's face
         order."""
         w0 = _walltime.time()
+        tg = getattr(self.sim, "to_global", None)
+        if tg is not None:
+            # natural-order global state on every rank (collective)
+            fluid = tg(fluid)
+            aux_x = None if aux_x is None else tg(aux_x)
         flux_nat = None
         if flux_dev is not None:
             f2g = getattr(self.sim, "flux_to_global", None)

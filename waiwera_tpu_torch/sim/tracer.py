@@ -139,6 +139,9 @@ def solve(
     rtol: float = 1e-5,
     max_iterations: int = 1000,
     basis_dtype="auto",
+    owned: Optional[torch.Tensor] = None,
+    sync=None,
+    reduce_sum=None,
 ) -> TracerResult:
     """One auxiliary solve.
 
@@ -151,7 +154,13 @@ def solve(
     tracer_injection: [ns, nt] injection rates.
     ghost_value: [N, nt] Dirichlet values of the ghost rows.
     basis_dtype: the GMRES basis dtype; "auto" follows
-    gmres_basis_dtype."""
+    gmres_basis_dtype.
+
+    Distributed hooks (parallel/spmd.py): owned [N] masks the rows to
+    the owning rank (halo rows stay zero through the Krylov iteration),
+    sync is the halo exchange applied inside the matvec before the face
+    gathers and to the solution, and reduce_sum combines the dot
+    products across ranks. On one device all three are left out."""
     from waiwera_tpu_torch.solver import krylov
 
     n = mesh.num_cells
@@ -218,11 +227,17 @@ def solve(
         vb = (adv * xu - diff_k * g) / vol_r
         return (decay_diag + prod_diag) * x + scatter2(va, vb)
 
+    own = None if owned is None else owned[:, None]
+
     def a_matvec(x):
-        ax = c_al * al * x - dt_eff * ar_matvec(x)
-        return torch.where(identity_row, x, ax)
+        xs = x if sync is None else sync(x)
+        ax = c_al * al * xs - dt_eff * ar_matvec(xs)
+        ax = torch.where(identity_row, xs, ax)
+        return ax if own is None else torch.where(own, ax, 0.0)
 
     b = torch.where(identity_row, fixed, b_hist + dt_eff * brhs)
+    if own is not None:
+        b = torch.where(own, b, 0.0)
 
     # the exact diagonal, for Jacobi preconditioning
     va = (torch.where(up_is_l, -adv, 0.0) - diff_k) / vol_l
@@ -233,9 +248,11 @@ def solve(
 
     if basis_dtype == "auto":
         basis_dtype = gmres_basis_dtype(b.numel(), b.element_size())
+    kw = {} if reduce_sum is None else {"reduce_sum": reduce_sum}
     res = krylov.solve("gmres", a_matvec, b, precond=lambda v: v * inv_diag,
                        rtol=rtol, max_iterations=max_iterations,
-                       basis_dtype=basis_dtype)
-    return TracerResult(x=res.x, al=al, converged=res.converged,
+                       basis_dtype=basis_dtype, **kw)
+    x = res.x if sync is None else sync(res.x)
+    return TracerResult(x=x, al=al, converged=res.converged,
                         iterations=res.iterations,
                         host_syncs=res.host_syncs, matvecs=res.matvecs)

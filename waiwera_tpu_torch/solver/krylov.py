@@ -5,7 +5,10 @@ waiwera_tpu/solver/krylov.py, with the KSP-name dispatch in solve).
 The JAX loops are lax.while_loops on the device. Here the loops run in
 Python and every convergence test copies one flag to the host: a host
 sync. The syncs are counted in KrylovResult.host_syncs. Vectors are
-[N, b]; dot products reduce over everything.
+[N, b]; dot products reduce over everything. reduce_sum combines the
+partial reductions of a domain-decomposed vector across ranks (an
+all_reduce; the identity on one device), so that every rank reads the
+same dots and takes the same branches.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(_dot(a, a))
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 def bicgstab(
@@ -44,6 +47,7 @@ def bicgstab(
     rtol: float = DEFAULT_RTOL,
     atol: float = DEFAULT_ATOL,
     max_iterations: int = 1000,
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> KrylovResult:
     """Right-preconditioned BiCGStab for A x = b from x = 0.
 
@@ -68,39 +72,48 @@ def bicgstab(
         syncs += 1
         return bool((rnorm > tol) & torch.isfinite(rnorm))
 
+    def dot(a, c):
+        return reduce_sum(_dot(a, c))
+
+    def norm(a):
+        return torch.sqrt(dot(a, a))
+
     tiny = torch.finfo(b.dtype).tiny
     x = torch.zeros_like(b)
-    tol = torch.clamp_min(rtol * _norm(b), atol)
+    tol = torch.clamp_min(rtol * norm(b), atol)
 
     def safe(v):
         return torch.where(v != 0, v, tiny)
 
     k = 0
     rnd = 0
-    rnorm = _norm(b - A(x))
+    rnorm = norm(b - A(x))
     while k < max_iterations and rnd < MAX_ROUNDS and above_tol(rnorm):
         r = b - A(x)
         r0 = r
         p = r
-        rho = _dot(r, r)
-        rn = _norm(r)
+        rho = dot(r, r)
+        rn = norm(r)
         while k < max_iterations and above_tol(rn):
             phat = precond(p)
             v = A(phat)
-            alpha = rho / safe(_dot(r0, v))
+            alpha = rho / safe(dot(r0, v))
             s = r - alpha * v
             shat = precond(s)
             t = A(shat)
-            omega = _dot(t, s) / safe(_dot(t, t))
+            # dots that share a reduction go in one (one all_reduce
+            # across ranks)
+            ts, tt = reduce_sum(torch.stack([_dot(t, s), _dot(t, t)]))
+            omega = ts / safe(tt)
             x = x + alpha * phat + omega * shat
             r = s - omega * t
-            rho_new = _dot(r0, r)
+            rho_new, rr = reduce_sum(torch.stack([_dot(r0, r), _dot(r, r)]))
             beta = (rho_new / safe(rho)) * (alpha / safe(omega))
             p = r + beta * (p - omega * v)
             rho = rho_new
             k += 1
-            rn = _norm(r)
-        rnorm = _norm(b - A(x))
+            rn = torch.sqrt(rr)
+        rnorm = norm(b - A(x))
         rnd += 1
     syncs += 1
     converged = bool((rnorm <= tol) & torch.isfinite(rnorm))
@@ -170,6 +183,7 @@ def gmres(
     restart: int = 30,
     max_restarts: int = 40,
     basis_dtype: Optional[torch.dtype] = None,
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> KrylovResult:
     """Right-preconditioned restarted GMRES(m) from x = 0.
 
@@ -202,9 +216,12 @@ def gmres(
     n = b.numel()
     m = restart
     x = torch.zeros_like(b)
-    tol = torch.clamp_min(rtol * _norm(b), atol)
+    def norm(a):
+        return torch.sqrt(reduce_sum(_dot(a, a)))
+
+    tol = torch.clamp_min(rtol * norm(b), atol)
     r = b - A(x)
-    rnorm = _norm(r)
+    rnorm = norm(r)
     syncs += 1
     tol_h, rnorm_h = torch.stack([tol, rnorm]).double().cpu().tolist()
     k = 0
@@ -217,11 +234,11 @@ def gmres(
             v_dtype)
         for j in range(m):
             w = A(precond(V[j].reshape(shape).to(b.dtype))).reshape(-1)
-            h1 = _basis_dot(V, j + 1, w)
+            h1 = reduce_sum(_basis_dot(V, j + 1, w))
             w = w - _basis_combine(V, j + 1, h1)
-            h2 = _basis_dot(V, j + 1, w)
+            h2 = reduce_sum(_basis_dot(V, j + 1, w))
             w = w - _basis_combine(V, j + 1, h2)
-            wnorm = torch.sqrt(w @ w)
+            wnorm = torch.sqrt(reduce_sum(w @ w))
             H[: j + 1, j] = h1 + h2
             H[j + 1, j] = wnorm
             V[j + 1] = (w / torch.where(wnorm > tiny, wnorm, 1.0)).to(v_dtype)
@@ -236,7 +253,7 @@ def gmres(
         its += min(int(np.sum(res_profile > tol_h)) + 1, m)
         k += 1
         r = b - A(x)
-        rnorm = _norm(r)
+        rnorm = norm(r)
         syncs += 1
         rnorm_h = float(rnorm)
     converged = bool(rnorm_h <= tol_h and np.isfinite(rnorm_h))
@@ -256,6 +273,7 @@ def lgmres(
     augment: int = 2,
     max_restarts: int = 40,
     basis_dtype: Optional[torch.dtype] = None,
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> KrylovResult:
     """Loose GMRES (Baker, Jessup & Manteuffel 2005), PETSc's KSPLGMRES,
     the reference's linear type "lgmres" (timestepper.F90:1731-1734),
@@ -291,9 +309,12 @@ def lgmres(
     shape = b.shape
     n = b.numel()
     x = torch.zeros_like(b)
-    tol = torch.clamp_min(rtol * _norm(b), atol)
+    def norm(a):
+        return torch.sqrt(reduce_sum(_dot(a, a)))
+
+    tol = torch.clamp_min(rtol * norm(b), atol)
     r = b - A(x)
-    rnorm = _norm(r)
+    rnorm = norm(r)
     syncs += 1
     tol_h, rnorm_h = torch.stack([tol, rnorm]).double().cpu().tolist()
     Z = []  # the latest error directions, newest first, in b.dtype
@@ -312,11 +333,11 @@ def lgmres(
             else:
                 q = precond(V[j].reshape(shape).to(b.dtype)).reshape(-1)
             w = A(q.reshape(shape)).reshape(-1)
-            h1 = _basis_dot(V, j + 1, w)
+            h1 = reduce_sum(_basis_dot(V, j + 1, w))
             w = w - _basis_combine(V, j + 1, h1)
-            h2 = _basis_dot(V, j + 1, w)
+            h2 = reduce_sum(_basis_dot(V, j + 1, w))
             w = w - _basis_combine(V, j + 1, h2)
-            wnorm = torch.sqrt(w @ w)
+            wnorm = torch.sqrt(reduce_sum(w @ w))
             H[: j + 1, j] = h1 + h2
             H[j + 1, j] = wnorm
             V[j + 1] = (w / torch.where(wnorm > tiny, wnorm, 1.0)).to(v_dtype)
@@ -330,11 +351,11 @@ def lgmres(
         x = x + dx.reshape(shape)
         its += min(int(np.sum(res_profile > tol_h)) + 1, m)
         if k_aug > 0:
-            dxn = torch.sqrt(dx @ dx)
+            dxn = torch.sqrt(reduce_sum(dx @ dx))
             Z = [dx / torch.where(dxn > tiny, dxn, 1.0)] + Z[: k_aug - 1]
         k += 1
         r = b - A(x)
-        rnorm = _norm(r)
+        rnorm = norm(r)
         syncs += 1
         rnorm_h = float(rnorm)
     converged = bool(rnorm_h <= tol_h and np.isfinite(rnorm_h))
@@ -352,6 +373,7 @@ def bicgstab_l(
     atol: float = DEFAULT_ATOL,
     ell: int = 2,
     max_iterations: int = 1000,
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> KrylovResult:
     """BiCGStab(l) (Sleijpen & Fokkema 1993), PETSc's KSPBCGSL, the
     reference's linear type "bcgsl" (timestepper.F90:1735-1738), from
@@ -379,14 +401,17 @@ def bicgstab_l(
     def safe(v):
         return torch.where(torch.abs(v) > tiny, v, tiny)
 
+    def dot(a, c):
+        return reduce_sum(_dot(a, c))
+
     y = torch.zeros_like(b)  # accumulated update, preconditioned space
     rshadow = b
-    tol = torch.clamp_min(rtol * _norm(b), atol)
+    tol = torch.clamp_min(rtol * torch.sqrt(dot(b, b)), atol)
     R = [b] + [torch.zeros_like(b) for _ in range(L)]
     U = [torch.zeros_like(b) for _ in range(L + 1)]
     one = b.new_ones(())
     rho0, alpha, omega = one, b.new_zeros(()), one
-    rnorm = _norm(b)
+    rnorm = torch.sqrt(dot(b, b))
     k = 0
     while True:
         syncs += 1
@@ -397,13 +422,13 @@ def bicgstab_l(
         rho0 = -omega * rho0
         # BiCG part
         for j in range(L):
-            rho1 = _dot(R[j], rshadow)
+            rho1 = dot(R[j], rshadow)
             beta = alpha * rho1 / safe(rho0)
             rho0 = rho1
             for i in range(j + 1):
                 U[i] = R[i] - beta * U[i]
             U[j + 1] = op(U[j])
-            gamma = _dot(U[j + 1], rshadow)
+            gamma = dot(U[j + 1], rshadow)
             alpha = rho0 / safe(gamma)
             for i in range(j + 1):
                 R[i] = R[i] - alpha * U[i + 1]
@@ -415,11 +440,11 @@ def bicgstab_l(
         gam_p = [None] * (L + 1)
         for j in range(1, L + 1):
             for i in range(1, j):
-                tij = _dot(R[j], R[i]) / safe(sigma[i])
+                tij = dot(R[j], R[i]) / safe(sigma[i])
                 tau[i][j] = tij
                 R[j] = R[j] - tij * R[i]
-            sigma[j] = _dot(R[j], R[j])
-            gam_p[j] = _dot(R[0], R[j]) / safe(sigma[j])
+            sigma[j] = dot(R[j], R[j])
+            gam_p[j] = dot(R[0], R[j]) / safe(sigma[j])
         gam = [None] * (L + 1)
         gam[L] = gam_p[L]
         omega = gam[L]
@@ -438,7 +463,7 @@ def bicgstab_l(
             y = y + gam_pp[j] * R[j]
             R[0] = R[0] - gam_p[j] * R[j]
         k += L
-        rnorm = _norm(R[0])
+        rnorm = torch.sqrt(dot(R[0], R[0]))
     converged = bool(rnorm_h <= tol_h and np.isfinite(rnorm_h))
     return KrylovResult(
         x=precond(y), iterations=k, residual_norm=rnorm,
@@ -449,7 +474,8 @@ def bicgstab_l(
 def solve(method: str, matvec, b, precond=None, rtol: float = DEFAULT_RTOL,
           max_iterations: int = 1000, restart: int = 30, augment: int = 2,
           ell: int = 2,
-          basis_dtype: Optional[torch.dtype] = None) -> KrylovResult:
+          basis_dtype: Optional[torch.dtype] = None,
+          reduce_sum=_identity) -> KrylovResult:
     """KSP-style dispatch by the reference's JSON linear-solver names
     (timestepper.F90:1725-1739): bcgs/bicgstab, gmres, lgmres and
     bcgsl/bicgstabl. GMRES and LGMRES take ceil(max_iterations /
@@ -457,16 +483,18 @@ def solve(method: str, matvec, b, precond=None, rtol: float = DEFAULT_RTOL,
     those two only."""
     if method in ("bcgs", "bicgstab"):
         return bicgstab(matvec, b, precond=precond, rtol=rtol,
-                        max_iterations=max_iterations)
+                        max_iterations=max_iterations, reduce_sum=reduce_sum)
     max_restarts = max(1, -(-int(max_iterations) // max(restart, 1)))
     if method == "gmres":
         return gmres(matvec, b, precond=precond, rtol=rtol, restart=restart,
-                     max_restarts=max_restarts, basis_dtype=basis_dtype)
+                     max_restarts=max_restarts, basis_dtype=basis_dtype,
+                     reduce_sum=reduce_sum)
     if method == "lgmres":
         return lgmres(matvec, b, precond=precond, rtol=rtol, restart=restart,
                       augment=augment, max_restarts=max_restarts,
-                      basis_dtype=basis_dtype)
+                      basis_dtype=basis_dtype, reduce_sum=reduce_sum)
     if method in ("bcgsl", "bicgstabl"):
         return bicgstab_l(matvec, b, precond=precond, rtol=rtol, ell=ell,
-                          max_iterations=max_iterations)
+                          max_iterations=max_iterations,
+                          reduce_sum=reduce_sum)
     raise ValueError(f"unknown linear solver: {method!r}")

@@ -117,19 +117,27 @@ def newton_solve(
         return [bool(f) for f in torch.stack(flags).cpu()]
 
     def any_err(e):
-        return torch.any(e & interior)
+        return system.reduce_any(torch.any(e & interior))
 
-    def max_scaled(v, scale, tol):
+    def scaled(v, scale, tol):
         s = torch.clamp_min(torch.abs(scale), tol)
         return torch.where(interior[:, None], torch.abs(v) / s, 0.0)
 
     def max_scaled_loc(v, scale, tol):
-        vals = max_scaled(v, scale, tol).reshape(-1)
+        # the largest scaled component over the ranks, and its natural
+        # cell and equation, reported by the rank that holds it
+        vals = scaled(v, scale, tol).reshape(-1)
         idx = torch.argmax(vals)
-        return vals[idx], idx // npv, idx % npv
+        m = vals[idx]
+        gm = system.reduce_max(m)
+        has_max = m >= gm
+        wc = system.reduce_max(torch.where(
+            has_max, system.to_global_cell(idx // npv), -1))
+        we = system.reduce_max(torch.where(has_max, idx % npv, -1))
+        return gm, wc, we
 
     def fnorm_of(r):
-        return torch.sqrt(torch.sum(r * r))
+        return torch.sqrt(system.reduce_sum(torch.sum(r * r)))
 
     if initial is not None:
         fluid, L, fx = initial
@@ -179,10 +187,13 @@ def newton_solve(
             restart=params.linear_restart,
             augment=params.linear_augment,
             ell=params.linear_ell,
+            reduce_sum=system.reduce_sum,
         )
         syncs += lin.host_syncs
         matvecs += lin.matvecs
-        y_raw = y - lin.x.to(y.dtype)
+        # halo slots of the solution are not solved locally: pull them
+        # from their owners before the pointwise update
+        y_raw = y - system.sync(lin.x.to(y.dtype))
 
         # transitions + primary bounds
         old_primary = eos.unscale(y, region)
@@ -194,9 +205,11 @@ def newton_solve(
             new_primary, new_region
         )
         y_new = eos.scale(new_primary, new_region)
-        # ghost rows never move
-        y_new = torch.where(interior[:, None], y_new, y)
-        new_region = torch.where(interior, new_region, region)
+        # ghost rows never move (halo copies of remote cells do, as on
+        # their owner: the same per-cell transition on synced inputs)
+        update = system.update_mask
+        y_new = torch.where(update[:, None], y_new, y)
+        new_region = torch.where(update, new_region, region)
 
         # residual at the updated iterate
         fluid, cond, perr = system.derived_state(y_new, new_region, rock)
@@ -208,7 +221,8 @@ def newton_solve(
         it += 1
         linear_its += lin.iterations
         maxres, wc, we = max_scaled_loc(r, lhs_scale, params.function_atol)
-        maxupd = torch.max(max_scaled(y - y_new, y_new, params.update_atol))
+        maxupd = system.reduce_max(
+            torch.max(scaled(y - y_new, y_new, params.update_atol)))
         fnorm = fnorm_of(r)
         if params.monitor:
             syncs += 1

@@ -145,11 +145,35 @@ class System:
             self._mesh_by_dtype[dtype] = m
         return m
 
+    # -- parallel hooks: identities on one device; parallel/spmd.py's
+    # LocalSystem overrides them with collectives over the ranks ------
+
     @property
     def interior_mask(self) -> torch.Tensor:
-        """Rows that count in norms and move in Newton updates
-        (non-ghost)."""
+        """Rows that count in norms and residuals (non-ghost)."""
         return ~self.mesh.is_ghost
+
+    @property
+    def update_mask(self) -> torch.Tensor:
+        """Rows that move in Newton updates (non-ghost)."""
+        return ~self.mesh.is_ghost
+
+    def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def reduce_any(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def sync(self, x: torch.Tensor) -> torch.Tensor:
+        """The halo exchange of a cell array."""
+        return x
+
+    def to_global_cell(self, cell: torch.Tensor) -> torch.Tensor:
+        """Local cell index -> natural (global) cell index."""
+        return cell
 
     # -- state chains -------------------------------------------------
 
