@@ -39,22 +39,32 @@ Phases (any failure raises and the exit code is nonzero):
    just after: the flagship model written as a JSON file (mesh section
    128 x 64 x 64, f32 Jacobian and BiCGStab, adaptive stepping from
    1e5 s, 6 steps, a checkpoint at 2e4 s, output every 2nd step with
-   the water flux) and run with no device named through cli.run_json
-   where h5py imports, else through Simulation(config) + Timestepper
-   with an in-memory output of the same write signature; the mesh
-   comes from the config and the YAML log is written. Checks: the run
-   is not aborted, 6 steps, output times increase and hold the
-   checkpoint time, finite final state of 1,597,440 unknowns, dia_spmv
-   launches = Krylov matvecs > 0, the log ends with timestepper end.
-   Then the same JSON at 48 x 32 x 32 with BDF2 for 3 steps (checkpoint
-   at 1e4 s), and the 5 x 4 x 3 box for 2 steps through the Timestepper
-   on the card and on the CPU: the same tries and sizes, y within rtol
-   2e-5, atol 2e-5;
+   the water flux) and run with no device named through cli.run_json,
+   which writes the HDF5 output through the port's own writer
+   (utils/hdf5.py, which needs no h5py) and the YAML log;
+   the mesh comes from the config. Checks: the run is not aborted, 6
+   steps, output times increase and hold the checkpoint time, finite
+   final state of 1,597,440 unknowns, dia_spmv launches = Krylov
+   matvecs > 0, the log ends with timestepper end; the file read back
+   with the port's reader: the times, cell_index, every cell field
+   [records, 524,288], face_fields/flux_water [records, faces], the
+   last record's pressure equal bit for bit to the host copy of the
+   final state's. Then the restart from that file (initial.filename)
+   through cli.run_json for 2 steps: the primaries it reads equal the
+   first run's final primaries bit for bit (f64), its initial state
+   equals the first run's final state, its own file checks out the same
+   way, and dia_spmv launches = its Krylov matvecs > 0. Prints each
+   run's output seconds, MB written and MB/s, and the restart read's
+   seconds. Then the same JSON at 48 x 32 x 32 with BDF2 for 3 steps
+   (checkpoint at 1e4 s), and the 5 x 4 x 3 box for 2 steps on the card
+   and on the CPU: the same tries and sizes, y within rtol 2e-5, atol
+   2e-5;
 8. the EOS models (eos_model_config: the flagship box and rock, Corey
    relative permeability, van Genuchten capillarity, a per-cell initial
    state, a top boundary holding the top layer's state, a deliverability
    producer near the top and a 20 kg/s injector low down), each written
-   as a JSON file and run with no device named, the kernel counts set to
+   as a JSON file and run with no device named through cli.run_json
+   (HDF5 output through the port's writer), the kernel counts set to
    0 just before each run and read just after: (a) the default EOS "we"
    (no eos and no thermodynamics section) at 128 x 64 x 64 with a
    two-phase top zone, the schema's default solver (f64 Jacobian, f64
@@ -83,8 +93,9 @@ Phases (any failure raises and the exit code is nonzero):
    permeability table on the producers' rock type and a porosity table
    on the injectors', 3 adaptive steps from 1e4 s with the source,
    group, reinjector and tracer fields written every step, through
-   Simulation(config) + Timestepper with the in-memory output and no
-   device named, the kernel counts set to 0 just before and read just
+   Simulation(config) + Timestepper with the in-memory output (the run
+   hooks rock_for, which the CLI has no hook for) and no device named,
+   the kernel counts set to 0 just before and read just
    after. Checks: not aborted, 3 steps, a finite 532,480 x 2 final
    state, dia_spmv_f64 launches = Krylov matvecs > 0, every group's
    limited flow within its limit x (1 + 1e-9), no reinjector injecting
@@ -128,9 +139,14 @@ Phases (any failure raises and the exit code is nonzero):
    tries and Newton iterations, y within rtol 1e-8 / atol 1e-10 in (a)
    and rtol 2e-5 in (b) (tracers too) and (c); on every rank of (a)
    dia_spmv_f64 launches = its Krylov matvecs > 0; (b)'s two runs
-   repeat their counts (checked again with the C15 runs); (d) where
-   there are 2 cards or more, (a) over NCCL with one rank per card,
-   else one line saying so. Then the ROADMAP C15
+   repeat their counts (checked again with the C15 runs); (e) phase 8
+   (d)'s 5 x 4 x 3 "we" model for 2 steps through cli.run_json over 2
+   ranks sharing the card, rank 0 writing the HDF5 file through the
+   port's writer, read back and held within rtol 1e-8 (atol 1e-8 of each
+   dataset's largest magnitude) of the one-rank file; (d) where there
+   are 2 cards or more, (a) over NCCL with one rank per card, else one
+   line saying so. The one-rank runs go through cli.run_json. Then the
+   ROADMAP C15
    check: phase 8 (c) "w" and phase 9's production field at 48 x 32 x 32,
    each twice in the default mode and twice under
    torch.use_deterministic_algorithms, which must repeat their counts;
@@ -140,7 +156,8 @@ Phases (any failure raises and the exit code is nonzero):
 
 Prints each bench section's wall time on its own line, then the model
 runs' times and counts, the bench's full JSON record, one JSON line
-{"kernels": [...]} (launches on the bench path, on the phase 7 model run,
+{"kernels": [...]} (launches on the bench path, on the phase 7 model run
+and its restart,
 over phase 8's card runs, on phase 9's full-size run, over phase 10's
 card runs and over every rank of phase 11's runs) and the card's
 nvidia-smi name and power limit; the last line is {"ok": true,
@@ -919,9 +936,10 @@ def wedge_model_config(filename, nx, ny, nz, pos, **kw):
 
 
 class MemoryOutput:
-    """Output of a run kept in memory, for a machine without h5py: the
-    write signature of sim/output.py HDF5Output; each record keeps the
-    time, the interior pressures, the water flux, the source and network
+    """Output of a run kept in memory, for the runs that hook their
+    Simulation before it runs (model_run's sim_hook): the write
+    signature of sim/output.py HDF5Output; each record keeps the time,
+    the interior pressures, the water flux, the source and network
     fields and the interior tracers on the host."""
 
     filename = None
@@ -945,29 +963,27 @@ class MemoryOutput:
         pass
 
 
-def _h5py_imports() -> bool:
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
-
-
 def model_run(workdir, size, method="beuler", steps=6, device=None,
-              use_h5=None, log=log, checkpoint=CHECKPOINT, config=None,
-              name=None, sim_hook=None):
+              log=log, checkpoint=CHECKPOINT, config=None, name=None,
+              sim_hook=None):
     """Write the model JSON into workdir and run it through the port's
     entry points (device None: the CUDA device). The model is the
     flagship's model_config, or `config` (with checkpoint None where it
-    has none). sim_hook(sim), where given, is called on the in-memory
-    path's Simulation before the run. Returns (Timestepper, output times,
-    wall seconds, which entry point ran); on the in-memory path the
+    has none). It runs through cli.run_json, which writes <name>.h5 and
+    <name>.yaml in workdir; the HDF5 file is read back with the port's
+    reader (utils/hdf5.py). A run that needs sim_hook(sim) called on its
+    Simulation before it runs (phase 9's rock record, phase 10's timed
+    set-up and fd check) runs through Simulation(config) + Timestepper
+    with the in-memory MemoryOutput instead: the CLI takes no hook, and
+    gets none for this. Returns (Timestepper, output times, wall
+    seconds, which entry point ran); on the in-memory path the
     Timestepper's `output` is the MemoryOutput. Raises if the run
-    aborted, took another number of
-    steps, wrote times that do not increase or miss the checkpoint,
-    ended in a non-finite state, or left a log that does not end with the
-    timestepper's end."""
+    aborted, took another number of steps, wrote times that do not
+    increase or miss the checkpoint, a flux_water of another shape than
+    [records, faces], ended in a non-finite state, or left a log that
+    does not end with the timestepper's end."""
     from waiwera_tpu_torch import cli
+    from waiwera_tpu_torch.utils import hdf5
 
     if config is None:
         config = model_config(*size, method=method, steps=steps,
@@ -977,33 +993,29 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
     with open(fn, "w") as f:
         json.dump(config, f)
     log_fn = os.path.join(workdir, name + ".yaml")
-    if use_h5 is None:
-        use_h5 = _h5py_imports()
+    h5 = os.path.join(workdir, name + ".h5")
     t0 = time.perf_counter()
-    if use_h5:
+    if sim_hook is None:
         entry = "cli.run_json"
-        ts = cli.run_json(fn, device=device, overrides=[
-            "output.filename=" + json.dumps(os.path.join(workdir,
-                                                         name + ".h5"))])
-        import h5py
-
-        with h5py.File(os.path.join(workdir, name + ".h5")) as f:
-            times = np.asarray(f["time"])[:, 0].tolist()
-            nflux = f["face_fields/flux_water"].shape
-        if nflux != (len(times), ts.sim.mesh.num_faces):
-            raise RuntimeError(f"flux_water has shape {nflux}")
+        ts = cli.run_json(fn, device=device,
+                          overrides=["output.filename=" + json.dumps(h5)])
+        with hdf5.File(h5) as f:
+            times = f["time"][:, 0].tolist()
+            nflux = (f["face_fields/flux_water"].shape
+                     if "face_fields/flux_water" in f else None)
+        if nflux not in (None, (len(times), ts.sim.mesh.num_faces)):
+            raise RuntimeError(f"{name}: flux_water has shape {nflux}")
     else:
         from waiwera_tpu_torch.sim.simulation import Simulation
         from waiwera_tpu_torch.sim.timestepper import Timestepper
         from waiwera_tpu_torch.utils.config import TrackedConfig
         from waiwera_tpu_torch.utils.logging import Logger
 
-        entry = "Simulation + Timestepper (no h5py: in-memory output)"
+        entry = "Simulation + Timestepper (in-memory output, sim_hook)"
         with open(fn) as f:
             config = TrackedConfig(json.load(f))
         sim = Simulation(config, device=device)
-        if sim_hook is not None:
-            sim_hook(sim)
+        sim_hook(sim)
         out = MemoryOutput(sim)
         logger = Logger(filename=log_fn)
         try:
@@ -1038,6 +1050,11 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
     refused = sum(not ok for _, ok in ts.tried)
     with open(log_fn) as f:
         reductions = sum("[warn, timestep, reduction" in ln for ln in f)
+    written = ""
+    if sim_hook is None:
+        mb = os.path.getsize(h5) / 1e6
+        written = (f", {mb:.3f} MB written at "
+                   f"{mb / max(st['output_seconds'], 1e-9):.1f} MB/s")
     log(f"{name} through {entry}: wall {wall:.2f} s, run loop "
         f"{sum(st['step_seconds']):.2f} s, per accepted step "
         f"{[round(x, 3) for x in st['step_seconds']]} s, accepted sizes "
@@ -1048,8 +1065,166 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
         f"{syncs / st['tries']:.1f}"
         f" (of which the timestepper adds "
         f"{st['host_syncs_timestepper'] / st['tries']:.2f}), output "
-        f"{st['output_seconds']:.3f} s over {len(times)} records at {times}")
+        f"{st['output_seconds']:.3f} s over {len(times)} records at {times}"
+        f"{written}")
     return ts, times, wall, entry
+
+
+def check_output_file(path, ts, times):
+    """Phase 7's checks on a run's HDF5 file, read with the port's
+    reader: the times written (the last the final time), cell_index the
+    natural order, every cell field [records, interior cells] and finite,
+    face_fields/flux_water [records, faces], and the last record's
+    pressure equal, bit for bit, to the host copy of the final state's.
+    Returns (records, MB of the file, MB of its records: the growing
+    datasets, which the Timestepper's output_seconds cover; the
+    constants are written at set-up)."""
+    from waiwera_tpu_torch.utils import hdf5
+
+    sim = ts.sim
+    n = sim.mesh.num_interior_cells
+    with hdf5.File(path) as f:
+        t = f["time"][...]
+        nrec = len(times)
+        if t.shape != (nrec, 1) or t[:, 0].tolist() != list(times) or \
+                t[-1, 0] != ts.final_time:
+            raise RuntimeError(f"{path}: times {t[:, 0]} against {times}, "
+                               f"final {ts.final_time}")
+        if not np.array_equal(f["cell_index"][...],
+                              np.arange(n, dtype=np.int64)[:, None]):
+            raise RuntimeError(f"{path}: cell_index is not the natural order")
+        cf = f["cell_fields"]
+        for name in cf.keys():
+            ds = cf[name]
+            if ds.shape != (nrec, n) or ds.dtype != np.float64 or \
+                    not np.isfinite(ds[...]).all():
+                raise RuntimeError(f"{path}: cell_fields/{name} "
+                                   f"{ds.shape} {ds.dtype} or not finite")
+        flux = f["face_fields/flux_water"]
+        if flux.shape != (nrec, sim.mesh.num_faces):
+            raise RuntimeError(f"{path}: flux_water {flux.shape}")
+        last = cf["fluid_pressure"][-1]
+        grown = ["time"] + [f"{g}/{k}" for g in ("cell_fields",
+                                                 "face_fields",
+                                                 "source_fields")
+                            if g in f for k in f[g].keys()]
+        record_bytes = sum(f[k].size * f[k].dtype.itemsize for k in grown
+                           if f[k].shape[:1] == (nrec,))
+    final = sim.eos.unscale(ts.final_y, ts.final_region)[:n, 0].cpu().numpy()
+    if not np.array_equal(last, final):
+        raise RuntimeError(f"{path}: the last record's pressure differs from "
+                           "the final state's by up to "
+                           f"{np.abs(last - final).max()}")
+    return nrec, os.path.getsize(path) / 1e6, record_bytes / 1e6
+
+
+def restart_run(workdir, ts, path, size=FLAGSHIP, steps=2, device=None,
+                log=log):
+    """The model_config model of `size` restarted through cli.run_json
+    from the HDF5 file `path` of run `ts` (initial.filename; time.start
+    its final time, the first try its last accepted step's size) for
+    `steps` steps. Raises unless the primaries the
+    restart read equal the first run's final primaries bit for bit (f64,
+    host copy), its initial state (scaled where it runs) equals the first
+    run's final state carried through the same scaling, and its own file
+    checks out (check_output_file). Returns (Timestepper, seconds of the
+    restart's read, check_output_file's (records, MB, record MB))."""
+    from waiwera_tpu_torch.sim.simulation import Simulation
+
+    n = ts.sim.mesh.num_interior_cells
+    cfg = model_config(*size, steps=steps)
+    cfg["title"] = "restart"
+    cfg["initial"] = {"filename": path}
+    cfg["time"]["start"] = ts.final_time
+    cfg["time"]["step"]["size"] = ts.accepted[-1][0]  # the last step's
+    del cfg["output"]["checkpoint"]
+    plain = Simulation._initial_from_file
+    read = {}
+
+    def timed_read(sim, ic):
+        _sync(sim.device)
+        t0 = time.perf_counter()
+        read["primary"], read["region"] = out = plain(sim, ic)
+        read["s"] = time.perf_counter() - t0
+        return out
+
+    Simulation._initial_from_file = timed_read
+    try:
+        ts2, times, _, _ = model_run(workdir, size, steps=steps,
+                                     device=device, log=log, checkpoint=None,
+                                     config=cfg, name="model_restart")
+    finally:
+        Simulation._initial_from_file = plain
+    eos = ts.sim.eos
+    final = eos.unscale(ts.final_y, ts.final_region)
+    if not (np.array_equal(read["primary"], final[:n].cpu().numpy())
+            and np.array_equal(read["region"],
+                               ts.final_region[:n].cpu().numpy())):
+        raise RuntimeError("restart: the primaries read differ from the "
+                           "first run's final primaries")
+    carried = eos.scale(final, ts.final_region)
+    if not (torch.equal(ts2.sim.y0[:n], carried[:n])
+            and torch.equal(ts2.sim.region0[:n], ts.final_region[:n])):
+        raise RuntimeError("restart: the initial state differs from the "
+                           "first run's final state")
+    written = check_output_file(os.path.join(workdir, "model_restart.h5"),
+                                ts2, times)
+    return ts2, read["s"], written
+
+
+def flagship_io_run(workdir, counters, log=log):
+    """Phase 7's flagship run through cli.run_json with its HDF5 file
+    checked (check_output_file), then its restart (restart_run), each
+    with the kernel counts set to 0 just before and read just after;
+    dia_spmv launches must equal each run's Krylov matvecs > 0. Returns
+    (launches of both runs, the first run's wall, its entry point, the
+    output seconds, MB and MB/s of both runs and the restart's read
+    seconds)."""
+    for c in counters.values():
+        c.count = 0
+    ts, times, run_wall, entry = model_run(workdir, FLAGSHIP, log=log)
+    run_counts = {k: c.count for k, c in counters.items()}
+    if ts.sim.device.type != "cuda":
+        raise RuntimeError(f"the model run took {ts.sim.device}")
+    if tuple(ts.final_y.shape) != (FLAGSHIP_ROWS, 3):
+        raise RuntimeError(f"final state {tuple(ts.final_y.shape)}")
+    if run_counts["dia_spmv"] <= 0 or \
+            run_counts["dia_spmv"] != ts.stats["matvecs"]:
+        raise RuntimeError(
+            f"model run: kernel launches {run_counts['dia_spmv']} != "
+            f"Krylov matvecs {ts.stats['matvecs']}")
+    h5 = os.path.join(workdir, "model_beuler_128x64x64.h5")
+    nrec, mb, rec_mb = check_output_file(h5, ts, times)
+    out_s = ts.stats["output_seconds"]
+    io = {"output_s": out_s, "file_mb": mb, "record_mb": rec_mb,
+          "record_mb_per_s": rec_mb / out_s}
+    log(f"model run: {ts.final_y.numel()} unknowns, launches {run_counts}, "
+        f"final time {ts.final_time:.6g} s; HDF5 output {out_s:.3f} s for "
+        f"{nrec} records of {rec_mb:.3f} MB ({rec_mb / out_s:.1f} MB/s), "
+        f"file {mb:.3f} MB; read back, the last pressure equal to the final "
+        "state's bit for bit")
+    # the restart from that file, 2 steps, through cli.run_json
+    for c in counters.values():
+        c.count = 0
+    ts2, read_s, (nrec2, mb2, rec_mb2) = restart_run(workdir, ts, h5, log=log)
+    restart_counts = {k: c.count for k, c in counters.items()}
+    if restart_counts["dia_spmv"] <= 0 or \
+            restart_counts["dia_spmv"] != ts2.stats["matvecs"]:
+        raise RuntimeError(
+            f"restart: kernel launches {restart_counts['dia_spmv']} != "
+            f"Krylov matvecs {ts2.stats['matvecs']}")
+    for k, n in restart_counts.items():
+        run_counts[k] += n
+    out2_s = ts2.stats["output_seconds"]
+    io.update({"restart_read_s": read_s, "restart_output_s": out2_s,
+               "restart_file_mb": mb2, "restart_record_mb": rec_mb2,
+               "restart_record_mb_per_s": rec_mb2 / out2_s})
+    log(f"restart: read {read_s:.3f} s, initial primaries equal to the "
+        f"first run's final ones bit for bit, {ts2.taken} steps, launches "
+        f"{restart_counts} = matvecs {ts2.stats['matvecs']}; HDF5 output "
+        f"{out2_s:.3f} s for {nrec2} records of {rec_mb2:.3f} MB "
+        f"({rec_mb2 / out2_s:.1f} MB/s), file {mb2:.3f} MB")
+    return run_counts, run_wall, entry, io
 
 
 def check_bench(res, counts):
@@ -1194,7 +1369,7 @@ def eos_phase(workdir, counters, log=log):
         for c in counters.values():
             c.count = 0
         ts, _, _, _ = model_run(workdir, (5, 4, 3), steps=3, device=dev,
-                                use_h5=False, log=lambda m: None,
+                                log=lambda m: None,
                                 checkpoint=None, config=cfg,
                                 name=f"eos_we_small_{dev or 'card'}")
         if dev is None:
@@ -1297,8 +1472,8 @@ def network_phase(workdir, counters, log=log):
 
     for c in counters.values():
         c.count = 0
-    ts, _, wall, entry = model_run(workdir, FLAGSHIP, steps=3, use_h5=False,
-                                   log=log, checkpoint=None, config=cfg,
+    ts, _, wall, entry = model_run(workdir, FLAGSHIP, steps=3, log=log,
+                                   checkpoint=None, config=cfg,
                                    name="network_field", sim_hook=hook)
     counts = {k: c.count for k, c in counters.items()}
     if ts.sim.device.type != "cuda":
@@ -1346,7 +1521,7 @@ def network_phase(workdir, counters, log=log):
     pair = []
     for dev in (None, "cpu"):
         ts, _, _, _ = model_run(workdir, (5, 4, 3), steps=3, device=dev,
-                                use_h5=False, log=lambda m: None,
+                                log=lambda m: None,
                                 checkpoint=None, config=small,
                                 name=f"network_small_{dev or 'card'}")
         pair.append(ts)
@@ -1473,7 +1648,7 @@ def mesh_file_run(workdir, label, cfg, counters, write_s, fd=False,
                       (simulation.Simulation, "__init__")], split), \
             contextlib.redirect_stdout(out):
         ts, _, wall, entry = model_run(
-            workdir, None, steps=steps, device=device, use_h5=False,
+            workdir, None, steps=steps, device=device,
             log=log, checkpoint=None, config=cfg,
             name=f"mesh_file_{label}_{device or 'card'}", sim_hook=hook)
     counts = {k: c.count for k, c in counters.items()}
@@ -1877,7 +2052,7 @@ def determinism_check(workdir, counters, runs=2, log=log, ranks_runs=()):
                                                    warn_only=True)
                 try:
                     ts, _, wall, _ = model_run(
-                        workdir, REDUCED, steps=3, use_h5=False,
+                        workdir, REDUCED, steps=3,
                         log=lambda m: None, checkpoint=None, config=cfg,
                         name=f"c15_{model}_{mode}_{len(records)}")
                 finally:
@@ -1982,6 +2157,73 @@ def check_rank_launches(label, res, kernel):
                                f"launches {n} != matvecs {mv}")
 
 
+def dataset_names(group, prefix=""):
+    """The paths of every dataset under an HDF5 group read with the
+    port's reader, sorted."""
+    from waiwera_tpu_torch.utils import hdf5
+
+    out = []
+    for key in group.keys():
+        obj = group[key]
+        if isinstance(obj, hdf5.Group):
+            out += dataset_names(obj, prefix + key + "/")
+        else:
+            out.append(prefix + key)
+    return sorted(out)
+
+
+CLI_RANKS_RTOL = 1e-8  # phase 11 (a)'s bar, held on every dataset
+
+
+def cli_ranks_run(workdir, device="cuda", ranks=2, log=log):
+    """Phase 11 (e): phase 8 (d)'s 5 x 4 x 3 default-EOS model for 2
+    steps through cli.run_json over `ranks` ranks sharing `device` (gloo
+    on a card), rank 0 writing the HDF5 file through utils/hdf5.py, read
+    back with the port's reader and held against the same model's file
+    from one rank: the same datasets, shapes and dtypes, each within
+    rtol 1e-8 and atol 1e-8 of its largest magnitude. Returns the wall
+    seconds of the run over ranks."""
+    from waiwera_tpu_torch import cli
+    from waiwera_tpu_torch.utils import hdf5
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = eos_model_config("we", 5, 4, 3, steps=2)
+    name = "cli_ranks_1"
+    model_run(workdir, (5, 4, 3), steps=2,
+              device=None if on_card else device, log=lambda m: None,
+              checkpoint=None, config=cfg, name=name)
+    h5 = os.path.join(workdir, f"cli_ranks_{ranks}.h5")
+    shared = ["cuda:0" if on_card else device] * ranks
+    t0 = time.perf_counter()
+    res = cli.run_json(os.path.join(workdir, name + ".json"), device=device,
+                       num_devices=ranks, devices=shared,
+                       overrides=["output.filename=" + json.dumps(h5)])
+    wall = time.perf_counter() - t0
+    if res.aborted or res.taken != 2:
+        raise RuntimeError(f"phase 11 (e): aborted {res.aborted}, "
+                           f"{res.taken} steps of 2")
+    with hdf5.File(os.path.join(workdir, name + ".h5")) as f1, \
+            hdf5.File(h5) as f2:
+        names = dataset_names(f1)
+        if dataset_names(f2) != names:
+            raise RuntimeError(f"phase 11 (e): datasets {dataset_names(f2)} "
+                               f"against one rank's {names}")
+        for nm in names:
+            a, b = f1[nm][...], f2[nm][...]
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise RuntimeError(f"phase 11 (e): {nm} {b.shape} {b.dtype} "
+                                   f"against {a.shape} {a.dtype}")
+            np.testing.assert_allclose(
+                b, a, rtol=CLI_RANKS_RTOL,
+                atol=CLI_RANKS_RTOL * float(np.abs(a).max()),
+                err_msg=f"phase 11 (e) {nm}")
+    log(f"phase 11 (e): cli.run_json over {ranks} ranks on {shared}, wall "
+        f"{wall:.2f} s; rank 0's HDF5 file ({len(names)} datasets, "
+        f"{os.path.getsize(h5) / 1e6:.3f} MB) within rtol {CLI_RANKS_RTOL} "
+        "of one rank's")
+    return wall
+
+
 def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
                      reduced=None, wedge=WEDGE_REDUCED, log=log):
     """Phase 11: the multi-device run, RANKS ranks sharing one device
@@ -1990,8 +2232,10 @@ def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
     (b) phase 9's production field at `reduced` with asm (the local DILU,
     restricted additive Schwarz), 3 steps, twice (the counts must
     repeat); (c) phase 10 (b)'s wedge model at `wedge` from gmsh 4.1
-    binary, lgmres + asm, 3 steps; (d) where there are 2 cards or more,
-    (a) over NCCL with one rank per card. Returns (launches summed over
+    binary, lgmres + asm, 3 steps; (e) cli_ranks_run, the CLI over 2
+    ranks sharing the device with rank 0 writing the HDF5 file; (d)
+    where there are 2 cards or more, (a) over NCCL with one rank per
+    card. Returns (launches summed over
     every rank of every run, the two runs of (b) as C15 records)."""
     from waiwera_tpu_torch.bench import REDUCED
 
@@ -2006,7 +2250,7 @@ def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
 
     def one_rank(label, cfg, steps):
         return model_run(workdir, None, steps=steps,
-                         device=None if on_card else device, use_h5=False,
+                         device=None if on_card else device,
                          log=log, checkpoint=None, config=cfg,
                          name=f"ranks1_{label}")[0]
 
@@ -2065,6 +2309,9 @@ def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
     log(f"phase 11 (c): {nx * ny * nz * 2} wedges over {RANKS} ranks; "
         f"tries, Newton and y (rtol {MULTI_RTOL}) equal to one rank's")
     del ts1
+
+    # (e) the CLI over 2 ranks sharing the device, rank 0 writing HDF5
+    cli_ranks_run(workdir, device, log=log)
 
     # (d) NCCL, one rank per card
     cards = torch.cuda.device_count() if on_card else 0
@@ -2184,31 +2431,17 @@ def main() -> int:
     counters = {"dia_spmv": dia.dia_spmv_launches,
                 "dia_spmv_f64": dia.dia_spmv_f64_launches,
                 "stream_scale": stream.stream_scale_launches}
-    for c in counters.values():
-        c.count = 0
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
-        ts, _, run_wall, entry = model_run(workdir, FLAGSHIP)
-        run_counts = {k: c.count for k, c in counters.items()}
-        if ts.sim.device.type != "cuda":
-            raise RuntimeError(f"the model run took {ts.sim.device}")
-        if tuple(ts.final_y.shape) != (FLAGSHIP_ROWS, 3):
-            raise RuntimeError(f"final state {tuple(ts.final_y.shape)}")
-        if run_counts["dia_spmv"] <= 0 or \
-                run_counts["dia_spmv"] != ts.stats["matvecs"]:
-            raise RuntimeError(
-                f"model run: kernel launches {run_counts['dia_spmv']} != "
-                f"Krylov matvecs {ts.stats['matvecs']}")
-        log(f"model run: {ts.final_y.numel()} unknowns, launches "
-            f"{run_counts}, final time {ts.final_time:.6g} s")
-        del ts
+        run_counts, run_wall, entry, phase7_io = flagship_io_run(
+            workdir, counters)
         tb, _, _, _ = model_run(workdir, bench.REDUCED, method="bdf2",
                                 steps=3, checkpoint=CHECKPOINT_SMALL)
         del tb
         pair = []
         for dev in (None, "cpu"):
             tsm, _, _, _ = model_run(workdir, (5, 4, 3), steps=2, device=dev,
-                                     use_h5=False, log=lambda m: None,
+                                     log=lambda m: None,
                                      checkpoint=CHECKPOINT_SMALL)
             pair.append(tsm)
     card, cpu = pair
@@ -2222,7 +2455,8 @@ def main() -> int:
     log(f"small model run: {len(card.tried)} tries and {card.taken} steps "
         "agree between the card and the CPU")
     log(f"phase 7 (model run) {time.perf_counter() - t0:.2f} s, of which the "
-        f"flagship run {run_wall:.2f} s through {entry}")
+        f"flagship run {run_wall:.2f} s through {entry}; HDF5 "
+        f"{json.dumps(phase7_io)}")
 
     # 8. the EOS models: JSON files with their own EOS, thermodynamics
     # and curves through the port's entry points on the card

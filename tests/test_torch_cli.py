@@ -311,22 +311,60 @@ def test_module_entry_point_and_profile(tmp_path):
     assert trace["traceEvents"]
 
 
-@pytest.mark.parametrize("use_h5", [True, False], ids=["run_json", "memory"])
-def test_smoke_script_model_run_on_the_cpu(tmp_path, use_h5):
+@pytest.mark.parametrize("hooked", [False, True], ids=["run_json", "memory"])
+def test_smoke_script_model_run_on_the_cpu(tmp_path, hooked):
     """The model-run phase of chip_smoke.py, rehearsed on the CPU at
     5 x 4 x 3 through both of its entry points (cli.run_json with HDF5
-    output; Simulation + Timestepper with its in-memory output): its own
+    output through utils/hdf5.py; Simulation + Timestepper with its
+    in-memory output, the path of a run given a sim_hook): its own
     checks pass, the ladder refuses tries, and both paths take the same
     steps."""
     import chip_smoke
 
+    hooked_sims = []
     ts, times, _, entry = chip_smoke.model_run(
-        str(tmp_path), (5, 4, 3), steps=3, device="cpu", use_h5=use_h5,
-        log=lambda msg: None, checkpoint=chip_smoke.CHECKPOINT_SMALL)
-    assert ("run_json" in entry) == use_h5
+        str(tmp_path), (5, 4, 3), steps=3, device="cpu",
+        log=lambda msg: None, checkpoint=chip_smoke.CHECKPOINT_SMALL,
+        sim_hook=hooked_sims.append if hooked else None)
+    assert ("run_json" in entry) != hooked
+    assert len(hooked_sims) == hooked
     assert ts.taken == 3 and chip_smoke.CHECKPOINT_SMALL in times
     assert [d for d, ok in ts.tried if ok] == [1.0e4, 4.0e3, 320.0]
     assert sum(not ok for _, ok in ts.tried) == 4
     assert ts.stats["matvecs"] > 0 and len(ts.stats["step_seconds"]) == 3
     assert (tmp_path / "model_beuler_5x4x3.yaml").exists()
-    assert (tmp_path / "model_beuler_5x4x3.h5").exists() == use_h5
+    assert (tmp_path / "model_beuler_5x4x3.h5").exists() != hooked
+
+
+def test_smoke_script_restart_on_the_cpu(tmp_path):
+    """Phase 7's file checks and restart in chip_smoke.py, rehearsed on
+    the CPU at 5 x 4 x 3: the run's file reads back with the port's
+    reader, its last pressure equal to the final state's bit for bit;
+    the restart through cli.run_json reads the final primaries bit for
+    bit, starts from the final state and writes a file that checks
+    out; h5py reads both files to the port reader's values."""
+    import chip_smoke
+    from waiwera_tpu_torch.utils import hdf5
+
+    d = str(tmp_path)
+    ts, times, _, _ = chip_smoke.model_run(
+        d, (5, 4, 3), steps=3, device="cpu", log=lambda msg: None,
+        checkpoint=chip_smoke.CHECKPOINT_SMALL)
+    path = str(tmp_path / "model_beuler_5x4x3.h5")
+    nrec, mb, record_mb = chip_smoke.check_output_file(path, ts, times)
+    assert nrec == len(times) == 4 and mb > record_mb > 0
+    ts2, read_s, (nrec2, _, _) = chip_smoke.restart_run(
+        d, ts, path, size=(5, 4, 3), steps=2, device="cpu",
+        log=lambda msg: None)
+    assert ts2.taken == 2 and read_s > 0 and nrec2 >= 2
+    assert ts2.tried[0][0] == ts.accepted[-1][0]
+    for fn in (path, str(tmp_path / "model_restart.h5")):
+        with h5py.File(fn) as f, hdf5.File(fn) as g:
+            names = chip_smoke.dataset_names(g)
+            found = []
+            f.visititems(lambda n, o: found.append(n)
+                         if isinstance(o, h5py.Dataset) else None)
+            assert sorted(found) == names
+            for n in names:
+                a, b = f[n][...], g[n][...]
+                assert a.dtype == b.dtype and np.array_equal(a, b), n

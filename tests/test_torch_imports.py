@@ -1,8 +1,9 @@
-"""waiwera_tpu_torch imports without JAX: with jax, the JAX package and
-h5py blocked in sys.modules, the package and every submodule import, and
-none of them pulls in jax or the JAX package; h5py is imported only
-where a file is opened (the HDF5 output, a restart, an HDF5 exodus
-mesh)."""
+"""waiwera_tpu_torch imports without JAX and without h5py: with jax, the
+JAX package and h5py blocked in sys.modules, the package, every
+submodule and chip_smoke.py import, and none of them pulls in jax, the
+JAX package or h5py; no import statement of the package or of
+chip_smoke.py names one of them (HDF5 files go through
+utils/hdf5.py)."""
 
 import os
 import subprocess
@@ -24,6 +25,7 @@ _SCRIPT = textwrap.dedent(
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    import chip_smoke
     assert torch.get_default_dtype() == torch.float32
     bad = [m for m in set(sys.modules) - preloaded
            if m.startswith("waiwera_tpu.")
@@ -70,23 +72,25 @@ def test_imports_without_jax():
         assert f"waiwera_tpu_torch.{mod}" in names, mod
 
 
-def test_h5py_is_imported_only_where_a_file_is_opened():
-    """No module imports h5py at import time (checked in the subprocess
-    above for the whole package); sim/output.py, sim/simulation.py and
-    mesh/exodus.py import it inside the functions that open a file."""
+def test_no_module_or_smoke_line_imports_h5py_jax_or_the_jax_package():
+    """No import statement, at the top of a module or inside a function,
+    of any module of the package or of chip_smoke.py names h5py, jax or
+    waiwera_tpu (the subprocess above checks the same at run time)."""
     import ast
 
     pkg = os.path.dirname(waiwera_tpu_torch.__file__)
-    for rel in ("sim/output.py", "sim/simulation.py", "mesh/exodus.py"):
-        tree = ast.parse(open(os.path.join(pkg, rel)).read())
-        top = [n for n in tree.body
-               if isinstance(n, (ast.Import, ast.ImportFrom))]
-        names = {a.name for n in top if isinstance(n, ast.Import)
-                 for a in n.names} | {n.module for n in top
-                                      if isinstance(n, ast.ImportFrom)}
-        assert "h5py" not in names, rel
-        inner = [n for f in ast.walk(tree)
-                 if isinstance(f, ast.FunctionDef) for n in ast.walk(f)
-                 if isinstance(n, ast.Import)
-                 and any(a.name == "h5py" for a in n.names)]
-        assert inner, rel
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")]
+    files.append(os.path.join(os.path.dirname(pkg), "chip_smoke.py"))
+    assert len(files) > 40
+    for path in files:
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            bad = {"h5py", "jax", "waiwera_tpu"} & set(roots)
+            assert not bad, f"{path}:{node.lineno} imports {bad}"

@@ -73,6 +73,56 @@ def test_exodus_matches_jax(tmp_path):
         _assert_same_mesh(mh, mt)
 
 
+def test_netcdf4_exodus_matches_jax(tmp_path):
+    """ExodusII as the netCDF-4 library writes it, through h5py with its
+    settings: creation order tracked (dense link storage: the root holds
+    more than 8 links, here 20 or more with netCDF's dimension
+    datasets), version 2 object headers with checksums, chunked
+    variables through the deflate and shuffle filters, elem_type as a
+    fixed-length string (netCDF's text attribute) or a variable-length
+    one. The port's reader (no h5py) gives the JAX package's mesh."""
+    import h5py
+    from waiwera_tpu.mesh.exodus import read_exodus as jread
+    from waiwera_tpu_torch.mesh.exodus import read_exodus as tread
+    from chip_smoke import EXODUS_TYPES
+
+    for k, (name, verts, blocks) in enumerate(_cases()):
+        path = str(tmp_path / f"{name}_nc4.exo")
+        with h5py.File(path, "w", libver=("earliest", "v108"),
+                       track_order=True) as f:
+            nd = verts.shape[1]
+            dims = {"len_string": 33, "len_line": 81, "four": 4,
+                    "time_step": 0, "num_dim": nd, "num_nodes": len(verts),
+                    "num_elem": sum(len(c) for _, c in blocks),
+                    "num_el_blk": len(blocks), "num_qa_rec": 1,
+                    "num_info": 2, "num_glo_var": 1, "num_nod_var": 1}
+            for b, (_, conn) in enumerate(blocks, start=1):
+                dims[f"num_el_in_blk{b}"] = len(conn)
+                dims[f"num_nod_per_el{b}"] = conn.shape[1]
+            for dim, size in dims.items():
+                f.create_dataset(dim, data=np.float32(size))
+            f.create_dataset("eb_status", data=np.ones(len(blocks), np.int32))
+            f.create_dataset("eb_prop1", data=np.arange(1, len(blocks) + 1,
+                                                        dtype=np.int32))
+            f.create_dataset("coor_names", data=np.array(
+                [c.encode() for c in "xyz"[:nd]], dtype="S33"))
+            for axis, coord in zip("xyz", verts.T):
+                f.create_dataset(f"coord{axis}", data=coord, chunks=(7,),
+                                 compression="gzip", shuffle=True)
+            for b, (etype, conn) in enumerate(blocks, start=1):
+                ds = f.create_dataset(f"connect{b}",
+                                      data=(conn + 1).astype(np.int32),
+                                      chunks=(5, conn.shape[1]),
+                                      compression="gzip", shuffle=True)
+                text = EXODUS_TYPES[etype]
+                ds.attrs["elem_type"] = (np.bytes_(text) if k % 2 == 0
+                                         else text)
+            assert len(f) >= 20
+        mt = tread(path)
+        assert mt.dim == verts.shape[1]
+        _assert_same_mesh(mt, jread(path))
+
+
 def test_mesh_file_through_simulation(tmp_path):
     """config["mesh"] names a file: exodus by suffix, gmsh otherwise, in
     both packages; an unknown element type is an error in both."""

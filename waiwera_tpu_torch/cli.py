@@ -8,8 +8,8 @@ Usage: python -m waiwera_tpu_torch.cli model.json [--device cpu]
 The run takes the CUDA device unless --device names another; without a
 CUDA device and without --device it raises. --devices N runs the model
 domain-decomposed over N ranks (the reference's mpiexec -np N): one
-CUDA device per rank, or N CPU ranks with --device cpu. HDF5 output
-needs h5py.
+CUDA device per rank, or N CPU ranks with --device cpu. The HDF5
+output is written by utils/hdf5.py (no h5py).
 """
 
 from __future__ import annotations

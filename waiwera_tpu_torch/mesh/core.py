@@ -88,6 +88,10 @@ class Mesh:
     def num_faces(self) -> int:
         return len(self.face_area)
 
+    @property
+    def interior_cell_mask(self) -> np.ndarray:
+        return ~self.is_ghost
+
 
 def _polygon_geometry(verts: np.ndarray):
     """Area vector and centroid of polygons given as [n, k, 3] vertex

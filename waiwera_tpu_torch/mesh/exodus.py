@@ -5,7 +5,7 @@ Replaces the reference's DMPlexCreateFromFile exodus path
 scipy's netcdf_file (dimensions num_nodes, num_dim, num_el_blk; the
 variables coord, or coordx/coordy/coordz, and connect<i> per element
 block with an elem_type attribute), or the NetCDF-4 (HDF5) variant, read
-with h5py, which is imported only when such a file is read.
+with utils/hdf5.py (no h5py).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from waiwera_tpu_torch.mesh.core import Mesh, build_mesh
+from waiwera_tpu_torch.utils import hdf5
 
 _TYPE_MAP = {
     "HEX": "hexahedron",
@@ -85,9 +86,7 @@ def _read_exodus_netcdf3(filename: str):
 
 def _read_exodus_hdf5(filename: str):
     """NetCDF-4 (HDF5-based) exodus variant."""
-    import h5py
-
-    with h5py.File(filename, "r") as f:
+    with hdf5.File(filename, "r") as f:
         # netCDF-4 stores dimensions as phony datasets or attributes;
         # the coord variables give the dimension instead
         if "coord" in f:

@@ -37,6 +37,12 @@ class FluidState(NamedTuple):
     def num_components(self) -> int:
         return self.mass_fraction.shape[-1]
 
+    def phase_present(self) -> torch.Tensor:
+        """[N, np] bool: is phase p present (bit p of composition)."""
+        bits = torch.arange(self.density.shape[-1], dtype=torch.int32,
+                            device=self.phase_composition.device)
+        return (self.phase_composition[:, None] >> bits) & 1 > 0
+
     def float_fields(self) -> tuple:
         """The floating fields, in field order (the arguments and
         outputs of the Jacobian's jvps)."""

@@ -9,9 +9,10 @@ fluid_temperature, ...; a time dataset [ntime, 1]; and cell_index
 giving the natural cell ordering. This file doubles as the restart
 checkpoint (initial.F90:421-679), tracer fields included.
 
-h5py is imported where the file is opened, not with this module: a
-machine without h5py imports the package and fails only here. Each
-written field crosses from the device to the host once.
+The file is written through utils/hdf5.py (numpy only; no h5py), in
+h5py's default format, and flushed after every record: a run cut short
+leaves a file that reads whole. Each written field crosses from the
+device to the host once.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from waiwera_tpu_torch.physics.state import FluidState
+from waiwera_tpu_torch.utils import hdf5
 
 
 def _np(a) -> np.ndarray:
@@ -48,11 +50,9 @@ def flux_fields(simulation) -> list:
 
 class HDF5Output:
     def __init__(self, filename: str, simulation, fields=None):
-        import h5py
-
         self.sim = simulation
         self.filename = filename
-        self.file = h5py.File(filename, "w")
+        self.file = hdf5.File(filename, "w")
         self.n = simulation.mesh.num_interior_cells
         self.cell_group = self.file.create_group("cell_fields")
         self.time_ds = self.file.create_dataset(

@@ -49,6 +49,7 @@ from waiwera_tpu_torch.physics.state import (
 from waiwera_tpu_torch.sim.network import SourceNetwork
 from waiwera_tpu_torch.solver.newton import NewtonParams, newton_solve
 from waiwera_tpu_torch.solver.system import System, method_coeffs
+from waiwera_tpu_torch.utils import hdf5
 from waiwera_tpu_torch.utils.interpolation import InterpolationTable
 
 
@@ -431,12 +432,10 @@ class Simulation:
         (default -1, the last), put into natural cell order through the
         file's cell_index. The fluid state is a pure function of
         (primary, region), so this 'minimal' restart continues the run
-        exactly. Needs h5py."""
-        import h5py
-
+        exactly. Read through utils/hdf5.py (no h5py)."""
         index = ic.get("index", -1)
         index = -1 if index is None else int(index)
-        with h5py.File(ic["filename"], "r") as f:
+        with hdf5.File(ic["filename"], "r") as f:
             cf = f["cell_fields"]
             order = np.asarray(f["cell_index"][:, 0], np.int64)
             inv = np.argsort(order)

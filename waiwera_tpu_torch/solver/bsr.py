@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from waiwera_tpu_torch.ops.segment import SegmentSum
+
 
 class BSRStructure(NamedTuple):
     """Static sparsity, numpy int64 arrays."""
@@ -28,6 +30,17 @@ class BSRStructure(NamedTuple):
 class BSRMatrix(NamedTuple):
     structure: BSRStructure
     data: torch.Tensor  # [nnzb, b, b]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x with x, y of shape [N, b]: each row's blocks summed
+        in storage order (ops/segment.py, the same bits on every
+        device). Builds its row sum on the host at each call: off the
+        solvers' path."""
+        s = self.structure
+        cols = torch.as_tensor(s.indices, device=x.device)
+        prod = torch.einsum("kij,kj->ki", self.data, x[cols])
+        rows = SegmentSum(s.rows, s.num_rows, device=x.device)
+        return rows.add(torch.zeros_like(x), prod)
 
     def diag_blocks(self) -> torch.Tensor:
         """[N, b, b] diagonal blocks."""

@@ -39,6 +39,11 @@ class Thermodynamics:
     tcritical: float = TCRITICAL
     pcritical: float = PCRITICAL
 
+    # Region indices follow the reference: 1 = liquid water, 2 = dry steam,
+    # 3 = supercritical, 4 = two-phase (not a property region).
+    def region_properties(self, region, p, t):
+        raise NotImplementedError
+
     def phase_composition(self, region: torch.Tensor, p: torch.Tensor,
                           t: torch.Tensor) -> torch.Tensor:
         """Phase-composition bitmask per cell (IAPWS.F90:317-364),

@@ -379,6 +379,9 @@ class IAPWS97(Thermodynamics):
     def steam_properties(self, p, t):
         return region2_properties(p, t)
 
+    def supercritical_properties(self, d, t):
+        return region3_properties(d, t)
+
     @staticmethod
     def saturation_pressure(t):
         return saturation_pressure(t)
@@ -388,7 +391,19 @@ class IAPWS97(Thermodynamics):
         return saturation_temperature(p)
 
     @staticmethod
+    def viscosity(t, density):
+        return viscosity(t, density)
+
+    @staticmethod
     def phase_viscosity(phase_index, t, p, density):
         """IAPWS-2008 viscosity for any phase (pressure unused)."""
         del phase_index, p
         return viscosity(t, density)
+
+    @staticmethod
+    def boundary23_pressure(t):
+        return boundary23_pressure(t)
+
+    @staticmethod
+    def boundary23_temperature(p):
+        return boundary23_temperature(p)

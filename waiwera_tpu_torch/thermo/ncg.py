@@ -72,6 +72,15 @@ class NCG:
     def henrys_derivative_salt(self, t, xs):
         raise NotImplementedError
 
+    def partial_pressure_of(self, t, total_density, xg):
+        """Partial pressure (Pa) of the gas of mass fraction xg in fluid
+        of total density total_density at t (deg C), by the real-gas
+        law."""
+        tk = t + TC_K
+        gas_density = total_density * xg
+        return (gas_density / self.molecular_weight
+                * (1.0e3 * GAS_CONSTANT * self.deviation_factor * tk))
+
     def energy_solution_salt(self, t, xs):
         """Energy of solution in brine (ncg_energy_solution_salt)."""
         dlnh = self.henrys_derivative_salt(t, xs)
