@@ -6,7 +6,8 @@
 Phases (any failure raises and the exit code is nonzero):
 1. the card: nvidia-smi name and power limit, torch's CUDA, nvcc;
 2. build the CUDA kernels csrc/dia_spmv.cu and csrc/stream_scale.cu from
-   the checkout (one nvcc each, started together, sm_90a);
+   the checkout (one nvcc each, started together, sm_90a; -Xptxas=-v
+   prints each kernel's registers, shared memory and spills);
 3. each kernel against its plain PyTorch version on the card:
    - dia_spmv_f32 at b = 1..4 with odd, negative and out-of-range
      offsets, and at the flagship shape (b = 3, offsets 0, +-1, +-128,
@@ -14,9 +15,16 @@ Phases (any failure raises and the exit code is nonzero):
      contraction and summation order);
    - dia_spmv_f64 at the same shapes: rtol 1e-12, atol 1e-12 * max|y|
      (f64 FMA contraction);
-   - stream_scale on an [8, 8Mi] f32 array against x * 0.999999: equal
-     to within 1 ulp (one f32 multiply each; bitwise equal expected);
-   with times as medians of chained launches (CUDA events);
+   - stream_scale (check_stream_grid) at sizes 0, 1, 3, 4, 5, 4,099,
+     8 x 4,099 and 8 x 8Mi with element offsets 0-3 of x and of out each,
+     and once at 2^31 + 5 elements: bitwise equal to x * 0.999999,
+     nothing written outside out, the launch counts of stream_plan's
+     pieces; then on an [8, 8Mi] f32 array, bitwise;
+   with times taken in turns (paired_ms: each round one chain of 20
+   launches of every call, CUDA events, the order reversed every other
+   round): the SpMV kernel and its plain version over 6 rounds, the
+   stream kernel, torch.mul(out=) and x * 0.999999 over 12, printed as
+   medians and quartiles with the kernel/library ratio;
 4. the main path: the port's bench (waiwera_tpu_torch/bench.py) in this
    process at its default sizes with every section (flagship 128 x 64
    x 64 settled step, stage breakdown, SpMV roofline with the stream
@@ -28,10 +36,11 @@ Phases (any failure raises and the exit code is nonzero):
    bjacobi sections (no matvec took the plain version), finite y;
    0 < spmv_roofline_fraction <= 1.05; measured bandwidth below
    1.05 x 3.35 TB/s; the MINC step ran the hybrid operator with
-   launches > 0; every kernel was launched;
+   launches > 0; every kernel was launched, and every stream_scale call
+   through the vector kernel;
 5. dia_spmv (f32 and f64) against the plain version on the flagship's
-   first Jacobian, at the tolerances of phase 3, timed beside
-   torch.sparse.mm on the same matrix as a CUDA CSR tensor;
+   first Jacobian, at the tolerances of phase 3, timed in turns with
+   torch.sparse.mm on the same matrix as a CUDA CSR tensor (12 rounds);
 6. the same three small-box steps on the card and on the CPU (plain
    SpMV), which must agree as the CPU port agrees with the JAX package
    (rtol 2e-5, atol 2e-5);
@@ -159,7 +168,9 @@ runs' times and counts, the bench's full JSON record, one JSON line
 {"kernels": [...]} (launches on the bench path, on the phase 7 model run
 and its restart,
 over phase 8's card runs, on phase 9's full-size run, over phase 10's
-card runs and over every rank of phase 11's runs) and the card's
+card runs and over every rank of phase 11's runs; for stream_scale also
+its vector kernel's launches on the bench path; the quartiles of kernel
+and library in turns and their ratio) and the card's
 nvidia-smi name and power limit; the last line is {"ok": true,
 "device": {...}}. Exits nonzero without a CUDA device.
 """
@@ -244,23 +255,38 @@ def run_steps(sim, step, dts=None, accept=2, max_tries=12, log=None):
     return tries
 
 
-def _chain_ms(fn, k=20, reps=5):
-    """Median over `reps` of the CUDA-event time of k chained calls,
-    divided by k, in ms (one warm-up chain first)."""
-    for _ in range(k):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+def paired_ms(calls, rounds=12, k=20):
+    """Time the calls {name: fn} in turns: each round runs one chain of k
+    calls of every fn, timed with CUDA events, the order reversed every
+    other round (one warm-up chain each first). Returns {name: (q1,
+    median, q3)} of ms per call over the rounds."""
+    for fn in calls.values():
         for _ in range(k):
             fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / k)
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    names = list(calls)
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(k):
+                calls[n]()
+            end.record()
+            end.synchronize()
+            times[n].append(start.elapsed_time(end) / k)
+    return {n: tuple(statistics.quantiles(v, n=4, method="inclusive"))
+            for n, v in times.items()}
+
+
+def _quartile_fields(t, prefix):
+    """The (q1, median, q3) of paired_ms as record fields."""
+    if t is None:
+        return {f"{prefix}ms": None, f"{prefix}q1_ms": None,
+                f"{prefix}q3_ms": None}
+    return {f"{prefix}ms": t[1], f"{prefix}q1_ms": t[0],
+            f"{prefix}q3_ms": t[2]}
 
 
 def _bound_ms(nbytes, flops, dtype):
@@ -302,8 +328,10 @@ def to_csr(m):
 
 
 def compare_spmv(m, x, label, log, library=False):
-    """Kernel vs plain version on the card: dict of max_abs_err, ms,
-    plain_ms, library_ms (torch.sparse.mm on the CSR form, or None),
+    """Kernel vs plain version on the card, timed in turns (paired_ms;
+    with library, beside torch.sparse.mm on the CSR form): dict of
+    max_abs_err, ms, q1_ms, q3_ms, plain_ms, library_ms, library_q1_ms,
+    library_q3_ms and ratio_to_library (None without library),
     bound_ms and bound_by."""
     from waiwera_tpu_torch.ops import dia
 
@@ -314,57 +342,156 @@ def compare_spmv(m, x, label, log, library=False):
     err = float((y - y_ref).abs().max())
     scale = float(y_ref.abs().max())
     torch.testing.assert_close(y, y_ref, rtol=rtol, atol=rtol * scale)
-    ms = _chain_ms(lambda: dia.dia_matvec(m, x))
-    plain_ms = _chain_ms(lambda: dia.dia_matvec_reference(m, x), k=5)
-    lib_ms = None
+    calls = {"kernel": lambda: dia.dia_matvec(m, x),
+             "plain": lambda: dia.dia_matvec_reference(m, x)}
     if library:
         csr = to_csr(m)
         xv = x.reshape(-1, 1)
         y_lib = torch.sparse.mm(csr, xv).reshape(x.shape)
         torch.testing.assert_close(y_lib, y_ref, rtol=rtol, atol=rtol * scale)
-        lib_ms = _chain_ms(lambda: torch.sparse.mm(csr, xv))
-        del csr
+        calls["library"] = lambda: torch.sparse.mm(csr, xv)
+    t = paired_ms(calls, rounds=12 if library else 6)
     nbytes, flops = spmv_work(m)
     bound, bound_by = _bound_ms(nbytes, flops, m.bands.dtype)
+    rec = {"max_abs_err": err, **_quartile_fields(t["kernel"], ""),
+           "plain_ms": t["plain"][1],
+           **_quartile_fields(t.get("library"), "library_"),
+           "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes}
+    rec["ratio_to_library"] = (rec["ms"] / rec["library_ms"] if library
+                               else None)
     log(f"spmv {label}: {m.bands.dtype} b {m.block_size} offsets "
         f"{m.offsets} n {m.num_rows} max_abs_err {err:.3e} (max|y| "
-        f"{scale:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-        f"{lib_ms} ms bound {bound:.4f} ms ({bound_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
-            "bytes": nbytes}
+        f"{scale:.3e}) kernel {_fmt(t['kernel'])} plain "
+        f"{_fmt(t['plain'])} library {_fmt(t.get('library'))} bound "
+        f"{bound:.4f} ms ({bound_by}); kernel/library "
+        f"{rec['ratio_to_library']}")
+    return rec
+
+
+def _fmt(t):
+    """(q1, median, q3) in ms as text."""
+    if t is None:
+        return "None"
+    return f"{t[1]:.4f} ms (q1 {t[0]:.4f}, q3 {t[2]:.4f})"
+
+
+STREAM_SIZES = (0, 1, 3, 4, 5, 4099, 8 * 4099, 8 * 8 * 1024 * 1024)
+# elements, above 2^31: at offsets (1, 1) the vector kernel's body starts
+# beyond 2^31 bytes of each buffer; at (1, 2) the scalar kernel takes the
+# whole array and its grid-stride loop's index passes 2^31
+STREAM_BIG = 2 ** 31 + 5
+
+
+def check_stream_grid(log, big=True):
+    """stream_scale on the card at every size of STREAM_SIZES with element
+    offsets 0-3 of x and of out each (mismatched ones included), then
+    (big) at STREAM_BIG elements (8 GiB in, 8 GiB out) with offsets 1
+    and 1 (head, vector body, tail) and 1 and 2 (all scalar): every call
+    bitwise equal to x * 0.999999, nothing written outside out, and each
+    kernel's launch count up by the number of ranges stream_plan gives
+    it. Returns the number of calls checked."""
+    from waiwera_tpu_torch.ops import stream
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    top = max(STREAM_SIZES) + 8
+    xb = torch.rand(top, generator=gen, device="cuda") + 0.5
+    ob = torch.empty_like(xb)
+    cases = [(n, ox, oo) for n in STREAM_SIZES for ox in range(4)
+             for oo in range(4)]
+
+    def one(n, ox, oo):
+        xv, ov = xb[ox:ox + n], ob[oo:oo + n]
+        ob.fill_(float("nan"))
+        plan = stream.stream_plan(xv.data_ptr(), ov.data_ptr(), n)
+        before = (stream.stream_scale_launches.count,
+                  stream.stream_scalar_launches.count)
+        stream.stream_scale(xv, ov)
+        torch.cuda.synchronize()
+        after = (stream.stream_scale_launches.count,
+                 stream.stream_scalar_launches.count)
+        want = (sum(k == "vec4" for k, _, _ in plan),
+                sum(k == "scalar" for k, _, _ in plan))
+        if (after[0] - before[0], after[1] - before[1]) != want:
+            raise RuntimeError(f"stream_scale n {n} offsets {ox}, {oo}: "
+                               f"launch counts {before} -> {after}, plan "
+                               f"{plan}")
+        if not torch.equal(ov, xv * stream.SCALE):
+            raise RuntimeError(f"stream_scale n {n} offsets {ox}, {oo}: not "
+                               "bitwise equal to x * 0.999999")
+        if not (bool(torch.isnan(ob[:oo]).all())
+                and bool(torch.isnan(ob[oo + n:]).all())):
+            raise RuntimeError(f"stream_scale n {n} offsets {ox}, {oo} wrote "
+                               "outside out")
+        return plan
+
+    vec4 = sum(any(k == "vec4" for k, _, _ in one(*c)) for c in cases)
+    checked = len(cases)
+    del xb, ob
+    if big:
+        xb = torch.rand(STREAM_BIG + 3, generator=gen, device="cuda") + 0.5
+        ob = torch.empty_like(xb)
+        for offsets, kinds in (((1, 1), ["scalar", "vec4", "scalar"]),
+                               ((1, 2), ["scalar"])):
+            plan = one(STREAM_BIG, *offsets)
+            if [k for k, _, _ in plan] != kinds:
+                raise RuntimeError(f"stream_scale n {STREAM_BIG} offsets "
+                                   f"{offsets}: plan {plan}")
+            checked += 1
+        del xb, ob
+        torch.cuda.empty_cache()
+    log(f"stream_scale grid: {checked} calls bitwise equal to x * 0.999999 "
+        f"(sizes {STREAM_SIZES}{f' and {STREAM_BIG}' if big else ''}, "
+        f"offsets 0-3 of x and out), {vec4} of the grid through the vector "
+        "kernel")
+    return checked
 
 
 def compare_stream(log):
-    """stream_scale vs x * 0.999999 on the card ([8, 8Mi] f32)."""
+    """stream_scale on the card: the grid of check_stream_grid, then on
+    [8, 8Mi] f32 against x * 0.999999 (bitwise), timed in turns with
+    torch.mul(out=) (the library call) and x * 0.999999 (plain)."""
     from waiwera_tpu_torch.ops import stream
 
+    check_stream_grid(log)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand((stream.N_SUB, stream.N_LANE), generator=gen,
                    device="cuda") + 0.5
     out = torch.empty_like(x)
+    counts0 = (stream.stream_scale_launches.count,
+               stream.stream_scalar_launches.count)
     stream.stream_scale(x, out)
     torch.cuda.synchronize()
+    if (stream.stream_scale_launches.count - counts0[0],
+            stream.stream_scalar_launches.count - counts0[1]) != (1, 0):
+        raise RuntimeError("stream_scale [8, 8Mi] did not take the vector "
+                           "kernel alone")
     ref = x * stream.SCALE
     bitwise = bool(torch.equal(out, ref))
-    ulp = float(((out.view(torch.int32) - ref.view(torch.int32)).abs()
-                 .max()))
     err = float((out - ref).abs().max())
-    if ulp > 1:
-        raise RuntimeError(f"stream_scale differs by {ulp} ulp")
+    if not bitwise:
+        raise RuntimeError(f"stream_scale [8, 8Mi] is not bitwise equal to "
+                           f"x * 0.999999 (max abs err {err:.3e})")
+    del ref
     y = torch.empty_like(x)
-    ms = _chain_ms(lambda: stream.stream_scale(x, out))
-    plain_ms = _chain_ms(lambda: x * stream.SCALE)
-    lib_ms = _chain_ms(lambda: torch.mul(x, stream.SCALE, out=y))
+    t = paired_ms({
+        "kernel": lambda: stream.stream_scale(x, out),
+        "library": lambda: torch.mul(x, stream.SCALE, out=y),
+        "plain": lambda: x * stream.SCALE,
+    }, rounds=12)
     nbytes = 2 * x.numel() * 4
     bound, bound_by = _bound_ms(nbytes, x.numel(), torch.float32)
-    log(f"stream_scale [8, 8Mi] f32: bitwise equal {bitwise}, max ulp "
-        f"{ulp:.0f}, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s) "
-        f"plain {plain_ms:.4f} ms torch.mul(out=) {lib_ms:.4f} ms bound "
-        f"{bound:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
-            "bytes": nbytes, "bitwise_equal": bitwise}
+    rec = {"max_abs_err": err, **_quartile_fields(t["kernel"], ""),
+           "plain_ms": t["plain"][1],
+           **_quartile_fields(t["library"], "library_"),
+           "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+           "bitwise_equal": bitwise}
+    rec["ratio_to_library"] = rec["ms"] / rec["library_ms"]
+    log(f"stream_scale [8, 8Mi] f32 in turns (12 rounds of 20 launches): "
+        f"kernel {_fmt(t['kernel'])} ({nbytes / rec['ms'] / 1e6:.1f} GB/s), "
+        f"torch.mul(out=) {_fmt(t['library'])}, plain {_fmt(t['plain'])}, "
+        f"kernel/library {rec['ratio_to_library']:.4f}, bound "
+        f"{bound:.4f} ms ({bound_by}, {bound / rec['ms']:.3f} of it)")
+    return rec
 
 
 def random_matrix(rng, b, n, offsets, device, dtype=torch.float32):
@@ -1256,9 +1383,14 @@ def check_bench(res, counts):
         raise RuntimeError(f"measured bandwidth "
                            f"{res['measured_bandwidth_gb_s']} GB/s")
     for name, n in counts.items():
-        if n <= 0:
+        if n <= 0 and name != "stream_scalar":
             raise RuntimeError(f"kernel {name} was not launched on the "
                                "main path")
+    # the bandwidth's buffers are fresh allocations: every call takes the
+    # vector kernel, and the scalar one never runs
+    if counts["stream_scalar"] != 0:
+        raise RuntimeError(f"the main path launched the scalar stream "
+                           f"kernel {counts['stream_scalar']} times")
 
 
 # phase 8: (label, EOS model, size, steps, time.step.solver or None for
@@ -2241,7 +2373,8 @@ def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
 
     reduced = reduced or REDUCED
     on_card = torch.device(device).type == "cuda"
-    total = {"dia_spmv": 0, "dia_spmv_f64": 0, "stream_scale": 0}
+    total = {"dia_spmv": 0, "dia_spmv_f64": 0, "stream_scale": 0,
+             "stream_scalar": 0}
 
     def add(res):
         for x in res:
@@ -2375,7 +2508,7 @@ def main() -> int:
 
     # 4. the main path: the port's bench, every section
     for c in (dia.dia_spmv_launches, dia.dia_spmv_f64_launches,
-              stream.stream_scale_launches):
+              stream.stream_scale_launches, stream.stream_scalar_launches):
         c.count = 0
     t0 = time.perf_counter()
     # no device named: the entry point takes the CUDA device by default.
@@ -2385,7 +2518,8 @@ def main() -> int:
     res = b.run()
     counts = {"dia_spmv": dia.dia_spmv_launches.count,
               "dia_spmv_f64": dia.dia_spmv_f64_launches.count,
-              "stream_scale": stream.stream_scale_launches.count}
+              "stream_scale": stream.stream_scale_launches.count,
+              "stream_scalar": stream.stream_scalar_launches.count}
     log(f"main path (bench) {time.perf_counter() - t0:.2f} s; launches "
         f"{counts}")
     for name, s in res["section_seconds"].items():
@@ -2430,7 +2564,8 @@ def main() -> int:
     # output and log, no device named
     counters = {"dia_spmv": dia.dia_spmv_launches,
                 "dia_spmv_f64": dia.dia_spmv_f64_launches,
-                "stream_scale": stream.stream_scale_launches}
+                "stream_scale": stream.stream_scale_launches,
+                "stream_scalar": stream.stream_scalar_launches}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         run_counts, run_wall, entry, phase7_io = flagship_io_run(
@@ -2516,6 +2651,10 @@ def main() -> int:
             "source": f"waiwera_tpu_torch/csrc/{src}",
             "replaces": replaces,
             "launches": counts[name],
+            # stream_scale: its scalar kernel (head, tail, mismatched
+            # alignment) beside the vector kernel's launches
+            **({"launches_scalar": counts["stream_scalar"]}
+               if name == "stream_scale" else {}),
             "launches_model_run": run_counts[name],
             "launches_eos_models": eos_counts[name],
             "launches_network_model": net_counts[name],
@@ -2527,6 +2666,11 @@ def main() -> int:
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
+            # in turns: quartiles of kernel and library, their ratio
+            "q1_ms": k["q1_ms"], "q3_ms": k["q3_ms"],
+            "library_q1_ms": k["library_q1_ms"],
+            "library_q3_ms": k["library_q3_ms"],
+            "ratio_to_library": k["ratio_to_library"],
             # the same bytes over the bandwidth the stream kernel measured
             "bound_measured_bw_ms": k["bytes"] / bw * 1e3,
         })

@@ -14,7 +14,10 @@ the CPU, against bench.py where it has a counterpart.
 - Simulation and Bench without a device raise where there is no CUDA
   device, and do not fall back to the CPU.
 - On the card (marked cuda): stream_scale against its plain version,
-  bitwise, and measure_bandwidth below the published 3.35 TB/s x 1.05.
+  bitwise, at every size and offset of chip_smoke.check_stream_grid
+  (with one size above 2^31 elements) with its launch counts, and
+  measure_bandwidth below the published 3.35 TB/s x 1.05, through the
+  vector kernel at every launch.
 """
 
 import numpy as np
@@ -105,13 +108,18 @@ def test_no_device_raises_without_cuda(monkeypatch):
 def test_cuda_stream_scale_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    x = torch.rand((8, 1 << 20), device="cuda") + 0.5
-    for view in (x, x.reshape(-1)[1:4097]):  # aligned, and a ragged view
-        out = torch.empty_like(view)
-        before = stream.stream_scale_launches.count
-        stream.stream_scale(view.contiguous(), out)
-        torch.cuda.synchronize()
-        assert stream.stream_scale_launches.count == before + 1
-        assert torch.equal(out, view * 0.999999)
+    from chip_smoke import STREAM_SIZES, check_stream_grid
+
+    # every size and offset of x and out, then one size above 2^31
+    # elements at matched and at mismatched offsets: bitwise equal to
+    # x * 0.999999 with its launch counts
+    assert check_stream_grid(lambda msg: None) == len(STREAM_SIZES) * 16 + 2
+    vec4 = stream.stream_scale_launches.count
+    scalar = stream.stream_scalar_launches.count
     bw = stream.measure_bandwidth("cuda")
     assert 0.0 < bw < 1.05 * 3.35e12
+    # fresh [8, 8Mi] buffers: every launch of the bandwidth path takes the
+    # vector kernel, none the scalar one
+    # (two chains of 4 and 24 launches, a warm-up and 3 timed each)
+    assert stream.stream_scale_launches.count - vec4 == 4 * (4 + 24)
+    assert stream.stream_scalar_launches.count == scalar

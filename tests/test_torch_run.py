@@ -183,7 +183,7 @@ def test_port_continues_from_a_jax_state(runner, runs):
     runner.reset()
     runner.sim_j.y0, runner.sim_j.region0 = tj.final_y, tj.final_region
     runner.sim_t.y0, runner.sim_t.region0 = timestepper_state_from_numpy(
-        np.asarray(tj.final_y), np.asarray(tj.final_region))
+        np.asarray(tj.final_y), np.asarray(tj.final_region), device="cpu")
     assert runner.sim_t.y0.dtype == runner.initial_t[0].dtype
     assert runner.sim_t.region0.dtype == runner.initial_t[1].dtype
     out = []

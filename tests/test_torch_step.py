@@ -61,7 +61,7 @@ def runs():
             np.asarray(res_j.y), np.asarray(res_j.region),
             np.asarray(f_j.temperature), np.asarray(l_j),
             {k: np.asarray(v) for k, v in f_j._asdict().items()},
-            np.asarray(fx_j),
+            np.asarray(fx_j), device="cpu",
         )
         out_t = step_t(y, region, temp, lhs, lhs, t, dt, dt, 0.0,
                        fluid_last=fluid, fluxes_last=fx)
@@ -125,3 +125,28 @@ def test_f64_step_matches_jax():
     np.testing.assert_array_equal(np_(rt.region), np.asarray(rj.region))
     np.testing.assert_allclose(np_(rt.y), np.asarray(rj.y), rtol=1e-8,
                                atol=1e-8)
+
+
+def test_state_from_numpy_takes_the_card_by_default(monkeypatch):
+    """state_from_numpy and timestepper_state_from_numpy without a device
+    take the CUDA device, as Simulation does, and raise where there is
+    none (no fall-back to the CPU); device="cpu" still works."""
+    from waiwera_tpu_torch.physics.state import FluidState
+    from waiwera_tpu_torch.sim.simulation import (
+        state_from_numpy,
+        timestepper_state_from_numpy,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    y, region = np.ones((4, 3)), np.ones(4, np.int32)
+    fluid = {k: np.ones(4) for k in FluidState._fields}
+    args = (y, region, np.ones(4), y, fluid, np.ones((5, 3)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        timestepper_state_from_numpy(y, region)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_numpy(*args)
+    y_t, region_t = timestepper_state_from_numpy(y, region, device="cpu")
+    assert (y_t.device.type, y_t.dtype, region_t.dtype) == (
+        "cpu", torch.float64, torch.int32)
+    out = state_from_numpy(*args, device="cpu")
+    assert all(t.device.type == "cpu" for t in out[:4])

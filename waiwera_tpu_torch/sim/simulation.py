@@ -619,12 +619,14 @@ def tracer_step_function(tracers, mesh, rock, network, npv: int,
     return tracer_step
 
 
-def timestepper_state_from_numpy(y, region, device="cpu"):
+def timestepper_state_from_numpy(y, region, device=None):
     """The state a Timestepper starts from, (y [N, npv] f64, region [N]
-    int32) on `device`, from numpy arrays (e.g. the JAX package's
-    final_y and final_region): assign it to a simulation's y0 and
-    region0. Everything else the run carries (balances, fluid, fluxes)
-    is recomputed from these."""
+    int32) on `device` (resolve_device: the CUDA device unless told
+    otherwise), from numpy arrays (e.g. the JAX package's final_y and
+    final_region): assign it to a simulation's y0 and region0.
+    Everything else the run carries (balances, fluid, fluxes) is
+    recomputed from these."""
+    device = resolve_device(device)
     return (
         torch.as_tensor(np.array(y, np.float64), device=device),
         torch.as_tensor(np.array(region, np.int32), device=device),
@@ -632,13 +634,15 @@ def timestepper_state_from_numpy(y, region, device="cpu"):
 
 
 def state_from_numpy(y, region, temperature, lhs, fluid, fluxes,
-                     device="cpu"):
+                     device=None):
     """A step state from numpy arrays (e.g. the JAX package's outputs):
     y [N, npv], region [N], temperature [N], lhs [N, npv], fluid a
     mapping of FluidState field name -> array, fluxes [F, nf] in
     canonical face order. Returns (y, region, temperature, lhs, fluid,
-    fluxes) as tensors on `device`: f64, with int32 regions and
-    integer fluid fields."""
+    fluxes) as tensors on `device` (resolve_device: the CUDA device
+    unless told otherwise): f64, with int32 regions and integer fluid
+    fields."""
+    device = resolve_device(device)
 
     def f64(a):
         return torch.as_tensor(np.array(a, np.float64), device=device)
