@@ -163,6 +163,31 @@ Phases (any failure raises and the exit code is nonzero):
    and the bench's settled flagship step with the fixed-order sums and
    with index_add in turn.
 
+12. the timestep try as replayed CUDA graphs (solver/program.py)
+   against the same try eagerly on the card: (a) the flagship settled
+   (the bench's settle protocol through the graph program), then one
+   step from that state through both: the same Newton, BiCGStab, matvec
+   and masked counts, y, regions, fluid, balances and fluxes bitwise
+   equal, host reads at most 1 + 2 per Newton iteration + 1 per
+   BiCGStab chunk; (b) both timed in turns, 6 rounds, the order
+   reversed every other round (medians, quartiles, graph/eager, host
+   syncs, capture seconds, the card's name and power limit), and the
+   graph step at krylov.CHUNK 4, 8 and 16 in turns (each equal to the
+   first bit for bit); (c) phase 7's 48 x 32 x 32 JSON model for 3
+   steps from a first step of 3e6 s (at least one refused try,
+   asserted) through the graph program and eagerly: the same tries,
+   counts and final state bit for bit; (d) the same model with BDF2 at
+   first steps of 1e4 and 3e4 s, both runs on one Simulation through
+   one captured program, each equal to its eager twin bit for bit.
+   `python3 chip_smoke.py --phase 12` runs phases 1, 2 and 12 alone.
+   Phases 4 (the bench's operating points), 6, 7, 8, 9 and 10 (c) run
+   their covered models as graphs (asserted: step_program "graph" in
+   phases 4 and 7, and in every model run the program that
+   step_program_mode gives its configuration); phase 11's ranks and
+   phase 10's ELL, lgmres, bcgsl and lu runs are eager by their
+   configuration, as is the C15 step cost (its A/B switch patches
+   Python).
+
 Prints each bench section's wall time on its own line, then the model
 runs' times and counts, the bench's full JSON record, one JSON line
 {"kernels": [...]} (launches on the bench path, on the phase 7 model run
@@ -1173,6 +1198,13 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
     if not last.startswith("- [info, timestepper, end, "):
         raise RuntimeError(f"{name}: the log ends with {last!r}")
     st = ts.stats
+    # the step program follows from the configuration alone
+    from waiwera_tpu_torch.sim.simulation import step_program_mode
+
+    want = step_program_mode(ts.sim.system, ts.newton_params)
+    if st["step_program"] != want:
+        raise RuntimeError(f"{name}: step program {st['step_program']}, "
+                           f"configured {want}")
     syncs = st["host_syncs_step"] + st["host_syncs_timestepper"]
     refused = sum(not ok for _, ok in ts.tried)
     with open(log_fn) as f:
@@ -1191,7 +1223,11 @@ def model_run(workdir, size, method="beuler", steps=6, device=None,
         f"matvecs {st['matvecs']}, host syncs per try "
         f"{syncs / st['tries']:.1f}"
         f" (of which the timestepper adds "
-        f"{st['host_syncs_timestepper'] / st['tries']:.2f}), output "
+        f"{st['host_syncs_timestepper'] / st['tries']:.2f}), step program "
+        f"{st['step_program']} ({st['graph_captures']} captures in "
+        f"{st['graph_capture_seconds']:.2f} s, {st['graph_replays']} "
+        f"replays, {st['masked_krylov_iterations']} masked BiCGStab "
+        f"iterations), output "
         f"{st['output_seconds']:.3f} s over {len(times)} records at {times}"
         f"{written}")
     return ts, times, wall, entry
@@ -1313,6 +1349,9 @@ def flagship_io_run(workdir, counters, log=log):
     run_counts = {k: c.count for k, c in counters.items()}
     if ts.sim.device.type != "cuda":
         raise RuntimeError(f"the model run took {ts.sim.device}")
+    if ts.stats["step_program"] != "graph":
+        raise RuntimeError(f"the model run's step program is "
+                           f"{ts.stats['step_program']}")
     if tuple(ts.final_y.shape) != (FLAGSHIP_ROWS, 3):
         raise RuntimeError(f"final state {tuple(ts.final_y.shape)}")
     if run_counts["dia_spmv"] <= 0 or \
@@ -1335,6 +1374,9 @@ def flagship_io_run(workdir, counters, log=log):
         c.count = 0
     ts2, read_s, (nrec2, mb2, rec_mb2) = restart_run(workdir, ts, h5, log=log)
     restart_counts = {k: c.count for k, c in counters.items()}
+    if ts2.stats["step_program"] != "graph":
+        raise RuntimeError(f"the restart's step program is "
+                           f"{ts2.stats['step_program']}")
     if restart_counts["dia_spmv"] <= 0 or \
             restart_counts["dia_spmv"] != ts2.stats["matvecs"]:
         raise RuntimeError(
@@ -1363,14 +1405,19 @@ def check_bench(res, counts):
     if not op["y_finite"] or op["y_shape"] != [FLAGSHIP_ROWS, 3]:
         raise RuntimeError(f"flagship solution: finite {op['y_finite']}, "
                            f"shape {op['y_shape']}")
-    # bjacobi sections: every Krylov matvec launched the kernel
+    # bjacobi sections: every Krylov matvec launched the kernel, the
+    # step ran as replayed CUDA graphs
     for key in ("operating_point", "reduced_operating_point",
                 "minc_operating_point"):
         o = res[key]
+        if o["step_program"] != "graph":
+            raise RuntimeError(f"{key}: step program {o['step_program']}")
         if o["spmv_launches"] <= 0 or o["spmv_launches"] != o["krylov_matvecs"]:
             raise RuntimeError(f"{key}: kernel launches {o['spmv_launches']} "
                                f"!= Krylov matvecs {o['krylov_matvecs']}")
     o = res["dtype_table"]["f64_operating_point"]
+    if o["step_program"] != "graph":
+        raise RuntimeError(f"f64 step: step program {o['step_program']}")
     if o["spmv_launches"] <= 0 or o["spmv_launches"] != o["krylov_matvecs"]:
         raise RuntimeError(f"f64 step: kernel launches {o['spmv_launches']}"
                            f" != Krylov matvecs {o['krylov_matvecs']}")
@@ -1977,6 +2024,9 @@ def mesh_file_phase(workdir, counters, w_run, log=log):
     ts, rec = mesh_file_run(workdir, "c", cfg, counters, write_s, log=log)
     if rec["route"] != "band":
         raise RuntimeError(f"phase 10 (c) took the {rec['route']} route")
+    if ts.stats["step_program"] != "graph":
+        raise RuntimeError(f"phase 10 (c): step program "
+                           f"{ts.stats['step_program']}")
     same_run((ts.tried, ts.final_y), w_run,
              "phase 10 (c) against phase 8 (c) w")
     add(rec)
@@ -2110,14 +2160,17 @@ def scatter_step_cost(pairs=12, size=FLAGSHIP, device=None, log=log):
     steps from the settled state, the fixed-order sums ("segment_sum")
     and index_add in turn (ABBA order, host clock to a synchronise, one
     warm call of each first), with the medians and quartiles of each and
-    the SegmentSum.add calls and their ops in one step."""
+    the SegmentSum.add calls and their ops in one step. The step runs
+    eagerly on the card."""
     from unittest import mock
 
     from waiwera_tpu_torch import bench
 
     dev = torch.device(device or "cuda")
     sim = bench.build_sim(*size, device=dev)
-    step = bench.make_step(sim)
+    # eager: the A/B switch patches SegmentSum.add in Python, which a
+    # captured graph would not see
+    step = bench.make_step(sim, eager=True)
     times = {"segment_sum": [], "index_add": []}
     calls = []
 
@@ -2212,6 +2265,293 @@ def determinism_check(workdir, counters, runs=2, log=log, ranks_runs=()):
             raise RuntimeError(f"C15: the runs of {model} differ: "
                                f"{sorted(counts)}")
     return records
+
+
+# phase 12: the try as replayed CUDA graphs against the same try eagerly
+GRAPH_ROUNDS = 6
+GRAPH_REFUSE_DT = 3.0e6  # phase 12 (c)'s first step size: refused tries
+GRAPH_BDF2_DTS = (1.0e4, 3.0e4)  # phase 12 (d)'s first step sizes
+
+
+def release():
+    """Drop what earlier phases left: their Systems hold graph pools."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _same_state(a, b, what):
+    """Bitwise equality of two tensors (or pytrees of tensors)."""
+    from torch.utils import _pytree as pytree
+
+    for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            d = (x.double() - y.double()).abs().max().item()
+            raise RuntimeError(f"{what}: graph and eager differ (max "
+                               f"|diff| {d:.3e})")
+
+
+def _settle(sim, step, settle=4, log=log):
+    """The bench's settle protocol (retry ladder from 1e5 s, `settle`
+    accepted steps at a held dt) with `step`; returns the step's inputs
+    at the settled state and the held dt."""
+    lhs, fluid, _ = sim.lhs_at(sim.y0, sim.region0)
+    fx = sim.initial_fluxes(sim.y0, sim.region0)
+    y, region, temp, lhs2 = sim.y0, sim.region0, fluid.temperature, lhs
+    t, dt, dt_last, first = 0.0, 1.0e5, 1.0e5, 1.0
+    accepted = tries = 0
+    while accepted < settle:
+        tries += 1
+        if tries > 15 + 5 * settle:
+            raise RuntimeError("phase 12: the flagship did not settle")
+        res, f_new, l_new, fx_new = step(
+            y, region, temp, lhs, lhs2, t, dt, dt_last, first,
+            fluid_last=fluid, fluxes_last=fx)
+        if res.converged and not res.failed:
+            y, region, temp = res.y, res.region, f_new.temperature
+            lhs2, lhs, fluid, fx = lhs, l_new, f_new, fx_new
+            t, dt_last, first = t + dt, dt, 0.0
+            accepted += 1
+        else:
+            dt *= 0.2
+    log(f"phase 12 (a): settled after {tries} tries at dt {dt:g} s, "
+        f"t {t:g} s")
+    return (y, region, temp, lhs, lhs2, t, dt, dt_last, first,
+            fluid, fx)
+
+
+def graph_flagship(log=log, rounds=GRAPH_ROUNDS):
+    """Phase 12 (a) and (b): the flagship's settled step through the
+    graph program and eagerly, from one state in one process: equal
+    counts, every output bitwise equal; then both timed in turns."""
+    from waiwera_tpu_torch import bench
+    from waiwera_tpu_torch.solver import krylov
+
+    sim = build_sim(*FLAGSHIP, "cuda")
+    graph, eager = make_step(sim), make_step(sim, eager=True)
+    if (graph.program_mode, eager.program_mode) != ("graph", "eager"):
+        raise RuntimeError(f"phase 12: step programs {graph.program_mode}, "
+                           f"{eager.program_mode}")
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    (y, region, temp, lhs, lhs2, t, dt, dt_last, first, fluid,
+     fx) = _settle(sim, graph, log=log)
+    # the settle ran through the graph program only: what it reserved is
+    # the graph pool and the warm-ups' cached blocks
+    torch.cuda.synchronize()
+    settle_reserved = torch.cuda.memory_reserved() - reserved0
+
+    def call(step, h=dt):
+        return step(y, region, temp, lhs, lhs2, t, h, dt_last, first,
+                    fluid_last=fluid, fluxes_last=fx)
+
+    out_g, out_e = call(graph), call(eager)
+    if not (out_g[0].converged and not out_g[0].failed):
+        dt *= 0.2  # the bench's one rung down
+        out_g, out_e = call(graph, dt), call(eager, dt)
+    rg, re_ = out_g[0], out_e[0]
+    counts = [(r.converged, r.failed, r.iterations, r.linear_iterations,
+               r.matvecs, r.masked_iterations) for r in (rg, re_)]
+    if counts[0] != counts[1]:
+        raise RuntimeError(f"phase 12 (a): counts differ {counts}")
+    _same_state((rg.y, rg.region, rg.max_residual) + tuple(out_g[1:]),
+                (re_.y, re_.region, re_.max_residual) + tuple(out_e[1:]),
+                "phase 12 (a) flagship step")
+    chunks = (rg.linear_iterations + rg.masked_iterations) // krylov.CHUNK
+    if rg.host_syncs > 1 + chunks + 2 * rg.iterations:
+        raise RuntimeError(f"phase 12 (a): {rg.host_syncs} host syncs for "
+                           f"{rg.iterations} Newton iterations and {chunks} "
+                           "chunks")
+    log(f"phase 12 (a): graph and eager flagship steps bitwise equal: "
+        f"Newton {rg.iterations}, BiCGStab {rg.linear_iterations}, masked "
+        f"{rg.masked_iterations}, matvecs {rg.matvecs}, chunks {chunks}; "
+        f"host syncs graph {rg.host_syncs}, eager {re_.host_syncs}")
+
+    # (b) in turns, the order reversed every other round
+    times = {"graph": [], "eager": []}
+    syncs = {}
+    steps = {"graph": graph, "eager": eager}
+    for r in range(rounds):
+        for name in (("graph", "eager") if r % 2 == 0
+                     else ("eager", "graph")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call(steps[name], dt)[0]
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            syncs[name] = res.host_syncs
+    q = {n: statistics.quantiles(v, n=4, method="inclusive")
+         for n, v in times.items()}
+    rec = {
+        "graph_s": q["graph"][1], "graph_q1_s": q["graph"][0],
+        "graph_q3_s": q["graph"][2], "eager_s": q["eager"][1],
+        "eager_q1_s": q["eager"][0], "eager_q3_s": q["eager"][2],
+        "graph_over_eager": q["graph"][1] / q["eager"][1],
+        "host_syncs_graph": syncs["graph"], "host_syncs_eager": syncs["eager"],
+        "graph_capture_seconds": graph.stats()["graph_capture_seconds"],
+        "graph_captures": graph.stats()["graph_captures"],
+        "newton": rg.iterations, "bicgstab": rg.linear_iterations,
+        "masked": rg.masked_iterations, "dt": dt, "rounds": rounds,
+        "settle_reserved_gb": settle_reserved / 1e9,
+        "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+        "card": bench.card(),
+    }
+    log(f"phase 12 (b) {json.dumps(rec)}")
+    rec["split"] = {n: step_split(steps[n], lambda s: call(s, dt))
+                    for n in ("graph", "eager")}
+    log(f"phase 12 (b) split {json.dumps(rec['split'])}")
+    rec["chunk_sweep"] = chunk_sweep(sim, call, dt, rg, log=log,
+                                     rounds=rounds)
+    return rec
+
+
+def step_split(step, call):
+    """One step's time by piece (CUDA events around each piece: a
+    graph's replay, or an eager piece with its host dispatch gaps; ms
+    and count per piece) against its host-clock wall. Through the graph
+    program their sum over the wall is the device's busy share of the
+    step (a replay holds no host gap)."""
+    step.timing = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call(step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pieces = {}
+    for name, start, end in step.timing:
+        ms, n = pieces.get(name, (0.0, 0))
+        pieces[name] = (ms + start.elapsed_time(end), n + 1)
+    step.timing = None
+    busy = sum(ms for ms, _ in pieces.values()) / 1e3
+    return {"wall_s": wall, "pieces_s": busy, "pieces_share": busy / wall,
+            "pieces": {k: {"ms": ms, "n": n} for k, (ms, n) in
+                       pieces.items()}}
+
+
+GRAPH_CHUNKS = (4, 8, 16)  # krylov.CHUNK values timed in phase 12 (b)
+
+
+def chunk_sweep(sim, call, dt, ref, log=log, rounds=GRAPH_ROUNDS):
+    """The settled flagship step through the graph program at each
+    krylov.CHUNK of GRAPH_CHUNKS (a program each), timed in turns: the
+    same iterations and y bit for bit at every chunk size (masked
+    iterations change nothing), other masked counts and host reads."""
+    from waiwera_tpu_torch.solver import krylov
+
+    saved = krylov.CHUNK
+    steps = {}
+    out = {}
+    try:
+        for k in GRAPH_CHUNKS:
+            krylov.CHUNK = k
+            steps[k] = make_step(sim)
+            res = call(steps[k], dt)[0]
+            if (res.iterations, res.linear_iterations) != (
+                    ref.iterations, ref.linear_iterations) or \
+                    not torch.equal(res.y, ref.y):
+                raise RuntimeError(f"phase 12 (b): chunk {k} differs")
+            out[k] = {"masked": res.masked_iterations,
+                      "matvecs": res.matvecs, "host_syncs": res.host_syncs,
+                      "capture_s": steps[k].stats()["graph_capture_seconds"],
+                      "times": []}
+        for r in range(rounds):
+            for k in (GRAPH_CHUNKS if r % 2 == 0 else GRAPH_CHUNKS[::-1]):
+                krylov.CHUNK = k
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(steps[k], dt)
+                torch.cuda.synchronize()
+                out[k]["times"].append(time.perf_counter() - t0)
+    finally:
+        krylov.CHUNK = saved
+    for k, o in out.items():
+        q = statistics.quantiles(o.pop("times"), n=4, method="inclusive")
+        o.update(s=q[1], q1_s=q[0], q3_s=q[2])
+    log(f"phase 12 (b) chunk sweep {json.dumps(out)}")
+    return out
+
+
+class _QuietLog:
+    def write(self, *a, **k):
+        pass
+
+
+def graph_twins(config, first_dts, log=log, label=""):
+    """Timestepper runs of `config` at each first step size, all on one
+    Simulation through the graph program (so the later runs replay the
+    first one's captures), and the same runs eagerly on another: the
+    same tries, counts and final state bit for bit. Returns the graph
+    runs' stats."""
+    from waiwera_tpu_torch.sim.simulation import Simulation
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+
+    runs = {}
+    for mode in ("graph", "eager"):
+        sim = Simulation(json.loads(json.dumps(config)))
+        sim._eager_step = mode == "eager"
+        runs[mode] = []
+        for dt in first_dts:
+            cfg = json.loads(json.dumps(config))
+            cfg["time"]["step"]["size"] = dt
+            ts = Timestepper(cfg, sim, logger=_QuietLog())
+            t0 = time.perf_counter()
+            if not ts.run():
+                raise RuntimeError(f"phase 12 {label}: {mode} run aborted")
+            runs[mode].append((ts, time.perf_counter() - t0))
+    out = []
+    for (g, wg), (e, we) in zip(runs["graph"], runs["eager"]):
+        if (g.stats["step_program"], e.stats["step_program"]) != (
+                "graph", "eager"):
+            raise RuntimeError(f"phase 12 {label}: programs "
+                               f"{g.stats['step_program']}, "
+                               f"{e.stats['step_program']}")
+        if g.tried != e.tried:
+            raise RuntimeError(f"phase 12 {label}: tries differ {g.tried} "
+                               f"{e.tried}")
+        keys = ("tries", "newton_iterations", "linear_iterations", "matvecs",
+                "masked_krylov_iterations", "host_syncs_step")
+        if [g.stats[k] for k in keys[:-1]] != [e.stats[k] for k in keys[:-1]]:
+            raise RuntimeError(f"phase 12 {label}: counts differ "
+                               f"{[(k, g.stats[k], e.stats[k]) for k in keys]}")
+        _same_state((g.final_y, g.final_region), (e.final_y, e.final_region),
+                    f"phase 12 {label} final state")
+        rec = {"first_dt": g.tried[0][0],
+               "tries": g.stats["tries"],
+               "refused": sum(not ok for _, ok in g.tried),
+               "newton": g.stats["newton_iterations"],
+               "bicgstab": g.stats["linear_iterations"],
+               "masked": g.stats["masked_krylov_iterations"],
+               "graph_captures": g.stats["graph_captures"],
+               "graph_capture_seconds": g.stats["graph_capture_seconds"],
+               "graph_replays": g.stats["graph_replays"],
+               "host_syncs_per_try_graph": g.stats["host_syncs_per_try"],
+               "host_syncs_per_try_eager": e.stats["host_syncs_per_try"],
+               "wall_graph_s": wg, "wall_eager_s": we}
+        log(f"phase 12 {label} {json.dumps(rec)}")
+        out.append(rec)
+    return out
+
+
+def graph_phase(log=log):
+    """Phase 12: (a)-(b) graph_flagship; (c) phase 7's 48 x 32 x 32 JSON
+    model from a first step size that is refused; (d) two BDF2 runs at
+    other first step sizes through one captured program."""
+    from waiwera_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    flag = graph_flagship(log=log)
+    release()
+    cfg = model_config(*bench.REDUCED, steps=3)
+    cfg.pop("output")
+    refused = graph_twins(cfg, (GRAPH_REFUSE_DT,), log=log, label="(c)")
+    if refused[0]["refused"] < 1:
+        raise RuntimeError("phase 12 (c): no try was refused")
+    cfg = model_config(*bench.REDUCED, method="bdf2", steps=3)
+    cfg.pop("output")
+    bdf2 = graph_twins(cfg, GRAPH_BDF2_DTS, log=log, label="(d)")
+    log(f"phase 12 (graph program) {time.perf_counter() - t0:.2f} s")
+    return {"flagship": flag, "refused": refused, "bdf2": bdf2}
 
 
 # phase 11: the multi-device run, ranks sharing the card through gloo
@@ -2464,7 +2804,11 @@ def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
     return total, runs
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = argv[argv.index("--phase") + 1] if "--phase" in argv else None
+    if only not in (None, "12"):
+        raise SystemExit(f"chip_smoke: --phase {only}: only 12 runs alone")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
@@ -2489,6 +2833,17 @@ def main() -> int:
                                 extra_flags=("-Xptxas=-v",))
     log(f"built {[os.path.relpath(p, ROOT) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s")
+
+    if only == "12":
+        graph_phase()
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     # 3. kernels vs plain on random inputs
     rng = np.random.default_rng(0)
@@ -2526,6 +2881,7 @@ def main() -> int:
         log(f"bench section {name}: {s:.3f} s")
     check_bench(res, counts)
 
+    release()
     # 5. the kernels on the flagship's first Jacobian, beside cuSPARSE
     sim = build_sim(*FLAGSHIP, device)
     lhs0, _, _ = sim.lhs_at(sim.y0, sim.region0)
@@ -2560,6 +2916,7 @@ def main() -> int:
         torch.testing.assert_close(rg.y.cpu(), rc.y, rtol=2e-5, atol=2e-5)
     log(f"small box: {len(dts)} steps agree between the card and the CPU")
 
+    release()
     # 7. the model run: JSON file -> Simulation(config) -> Timestepper ->
     # output and log, no device named
     counters = {"dia_spmv": dia.dia_spmv_launches,
@@ -2593,6 +2950,7 @@ def main() -> int:
         f"flagship run {run_wall:.2f} s through {entry}; HDF5 "
         f"{json.dumps(phase7_io)}")
 
+    release()
     # 8. the EOS models: JSON files with their own EOS, thermodynamics
     # and curves through the port's entry points on the card
     t0 = time.perf_counter()
@@ -2605,6 +2963,7 @@ def main() -> int:
     if eos_counts["dia_spmv_f64"] <= 0:
         raise RuntimeError("phase 8: dia_spmv_f64 was not launched")
 
+    release()
     # 9. the production-field model: the source network, tracers and rock
     # controls at the flagship size through the port's entry points
     t0 = time.perf_counter()
@@ -2613,6 +2972,7 @@ def main() -> int:
     log(f"phase 9 (production field) {time.perf_counter() - t0:.2f} s; "
         f"launches {net_counts}")
 
+    release()
     # 10. unstructured models read from mesh files (gmsh, exodus): the
     # wedge field on the ELL route with the BSR DILU, lgmres, bcgsl and lu
     t0 = time.perf_counter()
@@ -2634,6 +2994,10 @@ def main() -> int:
         scatter_step_cost()
     log(f"C15 check {time.perf_counter() - t0:.2f} s; (krylov, matvecs) "
         f"{[(r['model'], r['mode'], r['krylov'], r['matvecs']) for r in c15]}")
+
+    # 12. the try as replayed CUDA graphs against the same try eagerly
+    release()
+    res["graph_program"] = graph_phase()
 
     bw = res["measured_bandwidth_gb_s"] * 1e9
     entries = [

@@ -138,3 +138,45 @@ def test_bsr_matvec_matches_jax(b):
     ref = torch.zeros(n, b, dtype=torch.float64).index_add_(
         0, torch.as_tensor(s.rows), prod)
     assert torch.equal(y, ref)
+
+
+def test_newton_params_fields_match_jax():
+    """NewtonParams has the JAX package's fields and defaults, pc_sweeps
+    included."""
+    from waiwera_tpu.solver.newton import NewtonParams as JParams
+    from waiwera_tpu_torch.solver.newton import NewtonParams as TParams
+
+    assert TParams._fields == JParams._fields
+    assert TParams._field_defaults == JParams._field_defaults
+    assert TParams(pc_sweeps=1).pc_sweeps == 1
+
+
+@pytest.mark.parametrize("sweeps", [1, 3])
+def test_asm_sweeps_match_jax_band_dilu(sweeps):
+    """linear_operator_from_parts(..., "asm", sweeps=) on the f64
+    Jacobian of tests/test_solver.py's _rect_system(5, 4, 3) equals the
+    JAX package's band DILU with the same sweeps at f64 round-off; one
+    sweep differs from three."""
+    from torch_parity import rect_system_pair
+
+    sj, st = rect_system_pair(5, 4, 3)
+    from waiwera_tpu.solver.system import MethodCoeffs as JCoeffs
+
+    lhs0, _, _ = sj.lhs_at(sj.y0, sj.region0)
+    cj = JCoeffs(c_lhs=jnp.asarray(1.0), dt_eff=jnp.asarray(1e4),
+                 const=-lhs0)
+    parts = [np.array(p) for p in sj.system.jacobian_parts(
+        sj.y0, sj.region0, sj.rock, cj, jnp.asarray(0.0), jnp.asarray(1e4))]
+    _, pj = sj.system.linear_operator_from_parts(
+        [jnp.asarray(p) for p in parts], "asm", sweeps=sweeps)
+    pt_parts = [torch.as_tensor(p) for p in parts]
+    _, pt = st.system.linear_operator_from_parts(pt_parts, "asm",
+                                                 sweeps=sweeps)
+    n = st.mesh.num_cells
+    r = np.random.default_rng(4).standard_normal((n, 2))
+    zj = np.asarray(pj(jnp.asarray(r)))
+    zt = np_(pt(torch.as_tensor(r)))
+    np.testing.assert_allclose(zt, zj, rtol=1e-12,
+                               atol=1e-12 * np.abs(zj).max())
+    _, p3 = st.system.linear_operator_from_parts(pt_parts, "asm")
+    assert (np_(p3(torch.as_tensor(r))) == zt).all() == (sweeps == 3)

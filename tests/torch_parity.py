@@ -16,7 +16,8 @@ from chip_smoke import (build_sim, eos_model_config, flagship_config,
 
 __all__ = ["RecordingLogger", "assert_same_records", "eos_model_config",
            "flagship_config", "jax_coeffs", "jax_sim", "model_config",
-           "network_model_config", "np_", "sim_pair", "torch_coeffs",
+           "network_model_config", "np_", "rect_system_pair", "sim_pair",
+           "torch_coeffs",
            "torch_sim"]
 
 
@@ -31,6 +32,29 @@ def jax_sim(nx=5, ny=4, nz=3, minc=False):
 
 def torch_sim(nx=5, ny=4, nz=3, minc=False):
     return build_sim(nx, ny, nz, "cpu", minc=minc)
+
+
+def rect_system_pair(nx=6, ny=5, nz=4):
+    """tests/test_solver.py's _rect_system ("we", a box of 10 x 10 x 5 m
+    cells with a Dirichlet top) through both packages: (JAX Simulation,
+    port Simulation on the CPU)."""
+    from test_solver import _rect_system
+    from waiwera_tpu_torch.mesh.rect import rectangular_mesh
+    from waiwera_tpu_torch.sim.simulation import Simulation
+
+    config = {
+        "eos": {"name": "we"},
+        "initial": {"primary": [2.0e6, 120.0], "region": 1},
+        "boundaries": [{
+            "primary": [2.0e6, 120.0], "region": 1,
+            "faces": {"cells": list(range(nx * ny)),
+                      "normal": [0.0, 0.0, 1.0]},
+        }],
+    }
+    mesh = rectangular_mesh([10.0] * nx, [10.0] * ny, [5.0] * nz,
+                            origin=[0, 0, -100.0])
+    return (_rect_system(nx, ny, nz),
+            Simulation(config, mesh=mesh, device="cpu"))
 
 
 def sim_pair(config):

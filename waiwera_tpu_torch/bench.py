@@ -140,9 +140,12 @@ def newton_params(pc="bjacobi", linear_dtype="float32",
 
 
 def make_step(sim, pc="bjacobi", linear_dtype="float32",
-              jacobian_dtype="float32"):
+              jacobian_dtype="float32", eager=None):
+    """The bench's step function: as replayed CUDA graphs on the card
+    where the configuration is covered (eager=True runs it eagerly)."""
     return sim.make_step_fn(
-        newton_params(pc, linear_dtype, jacobian_dtype), "beuler"
+        newton_params(pc, linear_dtype, jacobian_dtype), "beuler",
+        eager=eager,
     )
 
 
@@ -187,6 +190,7 @@ def time_step(sim, step, reps=3, settle=SETTLE, max_seconds=None):
     device = sim.device
     t_start = time.perf_counter()
     launches0 = spmv_launches()
+    graphs0 = step.stats() if hasattr(step, "stats") else {}
     lhs, fluid, _ = sim.lhs_at(sim.y0, sim.region0)
     fx = sim.initial_fluxes(sim.y0, sim.region0)
     y, region, temp = sim.y0, sim.region0, fluid.temperature
@@ -252,6 +256,11 @@ def time_step(sim, step, reps=3, settle=SETTLE, max_seconds=None):
         "krylov_matvecs": matvecs,
         "spmv_launches": spmv_launches() - launches0,
         "host_syncs_timed_step": res.host_syncs,
+        "step_program": getattr(step, "program_mode", "eager"),
+        "masked_krylov_iterations": res.masked_iterations,
+        # the call's graph captures, their seconds and replays
+        **{k: v - graphs0[k] for k, v in
+           (step.stats() if graphs0 else {}).items()},
         "y_finite": bool(torch.isfinite(res.y).all()),
         "y_shape": list(res.y.shape),
     }

@@ -38,7 +38,7 @@ from waiwera_tpu_torch.solver.smallblocks import (
 
 MAX_BANDS = 16
 MAX_PLAN_SEGMENTS = 32
-DILU_SWEEPS = 3  # fixed-point sweeps per triangular solve of the DILU
+DILU_SWEEPS = 3  # default fixed-point sweeps per triangular solve (DILU)
 
 
 class DIAStructure(NamedTuple):
@@ -315,10 +315,15 @@ class _DiaOffsets(ctypes.Structure):
 
 
 class LaunchCount:
-    """Plain count of kernel launches; read and reset by callers."""
+    """Plain count of kernel launches; read and reset by callers. Every
+    count is listed in LaunchCount.all, so that a captured CUDA graph can
+    add its launches on each replay (solver/program.py)."""
+
+    all: list = []
 
     def __init__(self):
         self.count = 0
+        LaunchCount.all.append(self)
 
 
 # launches of csrc/dia_spmv.cu (dia_matvec on CUDA tensors), by type
@@ -395,9 +400,10 @@ def dia_matvec(m: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def select_bands(m: DIAMatrix, offsets) -> DIAMatrix:
     """The matrix of the listed bands of m only (a copy of those bands)."""
-    ks = [m.offsets.index(d) for d in offsets]
-    return m._replace(offsets=tuple(offsets),
-                      bands=m.bands[ks].contiguous())
+    # stacked slices: indexing by a list would copy the list to the device
+    bands = (torch.stack([m.bands[m.offsets.index(d)] for d in offsets])
+             if offsets else m.bands[:0].clone())
+    return m._replace(offsets=tuple(offsets), bands=bands)
 
 
 # ---------------------------------------------------------------------
@@ -431,11 +437,11 @@ def _shift_last(x: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
-def dia_dilu_em(m: DIAMatrix, dtype=None):
+def dia_dilu_em(m: DIAMatrix, sweeps: int = DILU_SWEEPS, dtype=None):
     """DILU / block-SGS on the bands (the JAX package's dia_dilu_em):
     M = (D~ + L) D~^{-1} (D~ + U) with D~_i = A_ii - sum_{d<0} A_{i,i+d}
     inv(A_{i+d,i+d}) A_{i+d,i}, factored in the bands' dtype, and both
-    triangular solves as DILU_SWEEPS fixed-point iterations applied in
+    triangular solves as `sweeps` fixed-point iterations applied in
     `dtype`. L y and U z are band SpMVs over the negative and positive
     bands (dia_matvec: the CUDA kernel on the card)."""
     b = m.block_size
@@ -466,11 +472,11 @@ def dia_dilu_em(m: DIAMatrix, dtype=None):
         r = r.to(m_a.bands.dtype)
         # forward: (D~ + L) y = r via y <- D~^{-1} (r - L y)
         y = apply_blocks_em(dinv_a, r)
-        for _ in range(DILU_SWEEPS):
+        for _ in range(sweeps):
             y = apply_blocks_em(dinv_a, r - dia_matvec(lower, y))
         # backward: (I + D~^{-1} U) z = y via z <- y - D~^{-1} U z
         z = y
-        for _ in range(DILU_SWEEPS):
+        for _ in range(sweeps):
             z = y - apply_blocks_em(dinv_a, dia_matvec(upper, z))
         return z
 

@@ -152,7 +152,8 @@ class HaloRoutes:
 
 class _AllReduceSum(torch.autograd.Function):
     """all_reduce(SUM) whose forward-mode derivative is the sum of the
-    tangents: psum is linear."""
+    tangents: psum is linear. Under vmap (the Jacobian's batched seeds)
+    the batched tensor is reduced whole: the sum is elementwise."""
 
     @staticmethod
     def forward(x, comm):
@@ -164,7 +165,11 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def jvp(ctx, x_t, _comm_t):
-        return ctx.comm._all_reduce(x_t, dist.ReduceOp.SUM)
+        return _AllReduceSum.apply(x_t, ctx.comm)
+
+    @staticmethod
+    def vmap(info, in_dims, x, comm):
+        return comm._all_reduce(x, dist.ReduceOp.SUM), in_dims[0]
 
     @staticmethod
     def backward(ctx, grad, *_):

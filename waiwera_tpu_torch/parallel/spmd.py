@@ -66,6 +66,8 @@ class LocalSystem(System):
     """System on one rank's local cells (owned + halo, the plan's
     padded layout), with the parallel hooks as collectives."""
 
+    distributed = True
+
     def __init__(self, eos, mesh: MeshArrays, network, comm: Comm,
                  owned: torch.Tensor, routes: HaloRoutes,
                  global_cells: torch.Tensor, n_owned_pad: int,
@@ -211,24 +213,26 @@ class LocalSystem(System):
         return mv
 
     def make_linear_operator(self, mat: bsr.BSRMatrix, pc_name: str,
-                             dtype=None):
+                             dtype=None, sweeps: int = dia.DILU_SWEEPS):
         mv = self.make_matvec(mat, dtype)
         if pc_name in ("none",) + _BJACOBI_LIKE:
             pc = precond.make_preconditioner(
                 "none" if pc_name == "none" else "bjacobi", mat, dtype=dtype)
         else:  # asm / ilu / dilu / sgs / lu: the local DILU (RAS)
-            pc = precond.dilu(mat, self.ilu_split, sweeps=dia.DILU_SWEEPS,
+            pc = precond.dilu(mat, self.ilu_split, sweeps=sweeps,
                               dtype=dtype)
         return mv, pc
 
-    def linear_operator_from_parts(self, parts, pc_name: str, dtype=None):
+    def linear_operator_from_parts(self, parts, pc_name: str, dtype=None,
+                                   sweeps: int = dia.DILU_SWEEPS):
         """Route 1 (one face plan on every rank): bands filled from the
         parts, the band SpMV (the dia_spmv kernel on the card) over
         unsynced x, then the indexed tail over the exchanged x. Other
         partitions assemble the local BSR matrix."""
         if self.bands is None or pc_name == "lu":
             return self.make_linear_operator(self.assemble_bsr(parts),
-                                             pc_name, dtype=dtype)
+                                             pc_name, dtype=dtype,
+                                             sweeps=sweeps)
         diag2, lr2, rl2 = parts
         m64 = dia.bands_from_blocks(self.bands, self.band_fill, diag2, lr2,
                                     rl2)
@@ -251,7 +255,7 @@ class LocalSystem(System):
             # line and CPR hierarchies are single-device structures
             pc = dia.dia_block_jacobi_em(invert_blocks_em(diag2), dtype)
         else:  # asm / ilu / dilu / sgs: band DILU with identity halo rows
-            pc = dia.dia_dilu_em(m64, dtype=dtype)
+            pc = dia.dia_dilu_em(m64, sweeps=sweeps, dtype=dtype)
         return mv, pc
 
 

@@ -48,7 +48,11 @@ from waiwera_tpu_torch.physics.state import (
 )
 from waiwera_tpu_torch.sim.network import SourceNetwork
 from waiwera_tpu_torch.solver.newton import NewtonParams, newton_solve
-from waiwera_tpu_torch.solver.system import System, method_coeffs
+from waiwera_tpu_torch.solver.system import (
+    System,
+    method_coeffs,
+    time_tensor,
+)
 from waiwera_tpu_torch.utils import hdf5
 from waiwera_tpu_torch.utils.interpolation import InterpolationTable
 
@@ -72,6 +76,8 @@ class Simulation:
                  device=None):
         self.config = config
         self.device = resolve_device(device)
+        # run covered configurations eagerly on the card too (comparisons)
+        self._eager_step = False
         self.title = config.get("title", "")
 
         thermo_name = config.get("thermodynamics", "iapws")
@@ -489,7 +495,7 @@ class Simulation:
         )
 
     def make_step_fn(self, newton_params: NewtonParams,
-                     method: str = "beuler"):
+                     method: str = "beuler", eager: Optional[bool] = None):
         """The one-timestep-try function.
 
         step(y, region, temperature, lhs_last, lhs_last2, t_last, dt,
@@ -499,8 +505,14 @@ class Simulation:
         tensors. fluid_last/fluxes_last: the previous accepted step's
         fluid state and face fluxes at (y, region), which let the
         initial residual skip the f64 EOS chain (not used when rock_in
-        replaces the rock)."""
-        return step_function(self.system, self.rock, newton_params, method)
+        replaces the rock). On the card a configuration that
+        step_program_mode covers runs as replayed CUDA graphs; eager
+        (default: this simulation's _eager_step, false) runs it eagerly,
+        the counterpart of jax.disable_jit for comparisons."""
+        if eager is None:
+            eager = self._eager_step
+        return step_function(self.system, self.rock, newton_params, method,
+                             eager=eager)
 
     def make_tracer_step_fn(self):
         """The auxiliary tracer solve of one accepted try
@@ -555,32 +567,104 @@ class Simulation:
         return {"total": dof, "min": dof, "max": dof, "imbalance": 0.0}
 
 
+# preconditioners whose set-up and application a graph covers (the band
+# and hybrid routes); the rest, and every other linear method, run eagerly
+GRAPH_PCS = ("none", "jacobi", "bjacobi", "asm", "ilu", "dilu", "sgs")
+
+
+def step_program_mode(system: System, newton_params: NewtonParams) -> str:
+    """"graph" where a try runs as replayed CUDA graphs, else "eager",
+    from the configuration alone: a CUDA device, a one-rank System, the
+    band or hybrid route, BiCGStab and a preconditioner of GRAPH_PCS."""
+    covered = (
+        system.mesh.is_ghost.device.type == "cuda"
+        and not system.distributed
+        and system.bands is not None
+        and newton_params.linear_method == "bcgs"
+        and newton_params.linear_pc in GRAPH_PCS
+    )
+    return "graph" if covered else "eager"
+
+
 def step_function(system: System, rock: RockState,
-                  newton_params: NewtonParams, method: str):
+                  newton_params: NewtonParams, method: str,
+                  eager: bool = False):
     """The one-timestep-try function of Simulation.make_step_fn over
     `system` (a System, or a rank's LocalSystem) with default rock
-    `rock`."""
+    `rock`. It runs as CUDA graphs where step_program_mode says so and
+    `eager` is false: the graphs are captured at the first try and kept
+    on the System, keyed by the Newton parameters, the method, which of
+    the carried state and the rock the try is given and krylov.CHUNK,
+    in one memory pool per System. `step.program_mode` says which; `step.stats()`
+    counts its captures, their seconds and its replays."""
+    from waiwera_tpu_torch.solver import krylov
+    from waiwera_tpu_torch.solver.program import CudaGraphs, Program
+
+    device = system.mesh.is_ghost.device
+    mode = "eager" if eager else step_program_mode(system, newton_params)
+    programs = system.__dict__.setdefault("_step_programs", {})
+    totals = {"graph_captures": 0, "graph_capture_seconds": 0.0,
+              "graph_replays": 0}
+
+    def program_for(variant):
+        if mode == "eager":
+            return Program()
+        key = (newton_params, method, variant, krylov.CHUNK)
+        prog = programs.get(key)
+        if prog is None:
+            graphs = system.__dict__.get("_graphs")  # one pool per System
+            if graphs is None:
+                graphs = system._graphs = CudaGraphs(device)
+            prog = programs[key] = Program(graphs)
+        return prog
+
+    def counts(prog):
+        return {"graph_captures": prog.captures,
+                "graph_capture_seconds": prog.capture_seconds,
+                "graph_replays": prog.replays}
 
     def step(y, region, temperature, lhs_last, lhs_last2, t_last, dt,
              dt_last, first, rock_in=None, fluid_last=None,
              fluxes_last=None):
-        t0 = float(t_last)
-        t1 = t0 + float(dt)
-        coeffs = method_coeffs(method, dt, dt_last, first, lhs_last,
-                               lhs_last2)
+        # times as 0-d f64 tensors on the device: a try's values reach
+        # the graphs through their staged buffers
+        t0 = time_tensor(t_last, device)
+        dt = time_tensor(dt, device)
         initial = None
         if rock_in is None and fluid_last is not None \
                 and fluxes_last is not None:
             initial = (fluid_last, lhs_last, fluxes_last)
-        res = newton_solve(
-            system, y, region, temperature,
-            rock if rock_in is None else rock_in, coeffs, t0, t1,
-            lhs_scale=lhs_last, params=newton_params, initial=initial,
-        )
+        coeffs = method_coeffs(method, dt, dt_last, first, lhs_last,
+                               lhs_last2)
+        prog = program_for((rock_in is None, initial is None))
+        before = counts(prog)
+        y, region, temperature, rock_t, lhs_last, coeffs, t0, t1, initial = \
+            prog.stage("try", (
+                y, region, temperature, rock if rock_in is None else rock_in,
+                lhs_last, coeffs, t0, t0 + dt, initial))
+        prog.timing = step.timing
+        try:
+            res = newton_solve(
+                system, y, region, temperature, rock_t, coeffs, t0, t1,
+                lhs_scale=lhs_last, params=newton_params, initial=initial,
+                program=prog,
+            )
+        finally:
+            prog.timing = None
+        for k, v in counts(prog).items():
+            totals[k] += v - before[k]
         fluid, lhs_new, fluxes = res.fluid, res.lhs, res.fluxes
         res = res._replace(fluid=None, lhs=None, fluxes=None)
         return res, fluid, lhs_new, fluxes
 
+    def stats() -> dict:
+        """This step function's graph captures, their seconds and its
+        replays so far."""
+        return dict(totals)
+
+    step.program_mode = mode
+    step.stats = stats
+    step.timing = None  # a list: the pieces' CUDA events (Program.timing)
     return step
 
 

@@ -278,9 +278,17 @@ class Timestepper:
         and added by this loop (`timestepper`), seconds spent writing
         output, the host-clock seconds of each accepted step, its
         refused tries included, and of the tracer solves (`tracer_*`:
-        solves, GMRES iterations of each, host syncs, seconds)."""
+        solves, GMRES iterations of each, host syncs, seconds). The step
+        program: "graph" (the try's pieces replayed as CUDA graphs) or
+        "eager", chosen from the configuration before the first try
+        (sim/simulation.py step_program_mode); the run's graph captures,
+        their seconds and replays, the BiCGStab iterations run masked
+        and the step's host syncs per try."""
         return {"tries": 0, "newton_iterations": 0, "linear_iterations": 0,
-                "matvecs": 0, "host_syncs_step": 0,
+                "matvecs": 0, "masked_krylov_iterations": 0,
+                "step_program": "eager", "graph_captures": 0,
+                "graph_capture_seconds": 0.0, "graph_replays": 0,
+                "host_syncs_per_try": 0.0, "host_syncs_step": 0,
                 "host_syncs_timestepper": 0, "output_seconds": 0.0,
                 "step_seconds": [], "tracer_iterations": [],
                 "tracer_converged": [], "host_syncs_tracer": 0,
@@ -324,6 +332,10 @@ class Timestepper:
         region = sim.region0
         lhs, fluid, err = sim.lhs_at(y, region)
         self.stats = stats_run = self._new_stats()
+        stats_run["step_program"] = getattr(self.step_fn, "program_mode",
+                                            "eager")
+        step_stats = getattr(self.step_fn, "stats", dict)
+        graphs0 = step_stats()
         stats_run["host_syncs_timestepper"] += 1
         if bool(self._reduce_any(torch.any(err & ~sim.mesh_dev.is_ghost))):
             raise RuntimeError(
@@ -488,6 +500,8 @@ class Timestepper:
                 stats_run["newton_iterations"] += its
                 stats_run["linear_iterations"] += int(res.linear_iterations)
                 stats_run["matvecs"] += int(getattr(res, "matvecs", 0))
+                stats_run["masked_krylov_iterations"] += int(
+                    getattr(res, "masked_iterations", 0))
                 stats_run["host_syncs_step"] += int(
                     getattr(res, "host_syncs", 0)
                 )
@@ -634,6 +648,10 @@ class Timestepper:
         ):
             self._write_output(t, fluid, t, dt_last, flux_dev, aux_x)
             self._dump_jacobian(y, region, lhs, t, dt_last)
+        for k, v in step_stats().items():
+            stats_run[k] = v - graphs0[k]
+        stats_run["host_syncs_per_try"] = (
+            stats_run["host_syncs_step"] / max(stats_run["tries"], 1))
         log.write(
             "info",
             "timestepper",

@@ -2,13 +2,19 @@
 restart rounds, restarted GMRES, LGMRES and BiCGStab(l) (counterpart of
 waiwera_tpu/solver/krylov.py, with the KSP-name dispatch in solve).
 
-The JAX loops are lax.while_loops on the device. Here the loops run in
-Python and every convergence test copies one flag to the host: a host
-sync. The syncs are counted in KrylovResult.host_syncs. Vectors are
-[N, b]; dot products reduce over everything. reduce_sum combines the
-partial reductions of a domain-decomposed vector across ranks (an
-all_reduce; the identity on one device), so that every rank reads the
-same dots and takes the same branches.
+BiCGStab keeps its loop state on the device, as the JAX package's
+lax.while_loops do: the iterations run in chunks of CHUNK, each
+iteration's update masked by a device flag `active` (an iteration after
+convergence changes nothing), and the host reads (active, k) once per
+chunk and the round's flags once per round. Its pieces run through a
+solver.program.Program: eagerly, or replayed as CUDA graphs inside a
+Newton iteration. The other solvers' loops run in Python and copy a flag
+to the host at every convergence test. The syncs are counted in
+KrylovResult.host_syncs. Vectors are [N, b]; dot products reduce over
+everything. reduce_sum combines the partial reductions of a
+domain-decomposed vector across ranks (an all_reduce; the identity on
+one device), so that every rank reads the same dots and takes the same
+branches.
 """
 
 from __future__ import annotations
@@ -18,9 +24,15 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from waiwera_tpu_torch.solver.program import Program, distinct
+
 DEFAULT_RTOL = 1e-5  # PETSc KSP default relative tolerance
 DEFAULT_ATOL = 1e-50
 MAX_ROUNDS = 3  # true-residual restart rounds
+# BiCGStab iterations per chunk: one host read per chunk; a solve runs up
+# to CHUNK - 1 masked iterations past its last (PERF.md §6 times 4, 8 and
+# 16 on the card)
+CHUNK = 8
 
 
 class KrylovResult(NamedTuple):
@@ -29,7 +41,8 @@ class KrylovResult(NamedTuple):
     residual_norm: torch.Tensor  # 0-d
     converged: bool
     host_syncs: int
-    matvecs: int  # operator applications
+    matvecs: int  # operator applications the device ran, masked included
+    masked_iterations: int = 0  # BiCGStab iterations run masked
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,6 +51,191 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
+
+
+class _BiCGOps(NamedTuple):
+    """What the chunks of one solve share: the operator, the
+    preconditioner, the right-hand side and the tolerance."""
+
+    matvec: Callable
+    precond: Callable
+    b: torch.Tensor
+    tol: torch.Tensor  # 0-d
+
+
+class _BiCGState(NamedTuple):
+    """BiCGStab's loop state, on the device."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    r0: torch.Tensor  # shadow residual of the round
+    p: torch.Tensor
+    rho: torch.Tensor  # 0-d
+    rn: torch.Tensor  # 0-d, recurrence residual norm
+    k: torch.Tensor  # 0-d int64, iterations
+    active: torch.Tensor  # 0-d bool: the next iteration runs
+    rnorm: torch.Tensor  # 0-d, true residual norm at the last round test
+    rnd: torch.Tensor  # 0-d int64, rounds ended
+    go: torch.Tensor  # 0-d bool: a(nother) round runs
+
+
+class _BiCGStab:
+    """The pieces of one right-preconditioned BiCGStab solve, each a
+    pure function of tensors with no host read; the iteration and round
+    tests are those of the JAX package's cond and round_cond."""
+
+    def __init__(self, rtol, atol, max_iterations, reduce_sum, chunk):
+        self.rtol = rtol
+        self.atol = atol
+        self.max_iterations = max_iterations
+        self.reduce_sum = reduce_sum
+        self.chunk = chunk
+
+    def norm(self, a):
+        return torch.sqrt(self.reduce_sum(_dot(a, a)))
+
+    def cond(self, rn, tol, k):
+        return (rn > tol) & torch.isfinite(rn) & (k < self.max_iterations)
+
+    def round_cond(self, rnorm, tol, k, rnd):
+        return ((rnorm > tol) & torch.isfinite(rnorm) & (rnd < MAX_ROUNDS)
+                & (k < self.max_iterations))
+
+    def flags(self, st: _BiCGState, tol) -> torch.Tensor:
+        """[active, k, go, converged] as int64: the host's one read."""
+        conv = (st.rnorm <= tol) & torch.isfinite(st.rnorm)
+        return torch.stack([st.active.long(), st.k, st.go.long(),
+                            conv.long()])
+
+    def start(self, setup, *args):
+        """setup(*args) -> (matvec, precond, b); then the solve's start
+        from x = 0, its first round's start and one chunk."""
+        matvec, precond, b = setup(*args)
+        if precond is None:
+            precond = _identity
+        tol = torch.clamp_min(self.rtol * self.norm(b), self.atol)
+        ops = _BiCGOps(matvec, precond, b, tol)
+        x = torch.zeros_like(b)
+        rnorm = self.norm(b - matvec(x))
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
+        st = _BiCGState(x=x, r=b, r0=b, p=b, rho=rnorm, rn=rnorm, k=k,
+                        active=torch.zeros((), dtype=torch.bool,
+                                           device=b.device),
+                        rnorm=rnorm, rnd=torch.zeros_like(k),
+                        go=self.round_cond(rnorm, tol, k, torch.zeros_like(k)))
+        st, flags = self.restart(st, ops)
+        return ops, distinct(st), flags
+
+    def restart(self, st: _BiCGState, ops: _BiCGOps):
+        """A round's start from the true residual (active only where
+        st.go), then one chunk."""
+        r = ops.b - ops.matvec(st.x)
+        rr = self.reduce_sum(_dot(r, r))
+        rn = torch.sqrt(rr)
+        st = st._replace(r=r, r0=r, p=r, rho=rr, rn=rn,
+                         active=st.go & self.cond(rn, ops.tol, st.k))
+        return self.iterations(st, ops)
+
+    def iterations(self, st: _BiCGState, ops: _BiCGOps):
+        """One chunk: `chunk` iterations, each masked by st.active."""
+        for _ in range(self.chunk):
+            st = self.iterate(st, ops)
+        return st, self.flags(st, ops.tol)
+
+    def iterate(self, st: _BiCGState, ops: _BiCGOps) -> _BiCGState:
+        tiny = torch.finfo(ops.b.dtype).tiny
+
+        def safe(v):
+            return torch.where(v != 0, v, tiny)
+
+        reduce_sum = self.reduce_sum
+        x, r, r0, p, rho = st.x, st.r, st.r0, st.p, st.rho
+        phat = ops.precond(p)
+        v = ops.matvec(phat)
+        alpha = rho / safe(reduce_sum(_dot(r0, v)))
+        s = r - alpha * v
+        shat = ops.precond(s)
+        t = ops.matvec(shat)
+        # dots that share a reduction go in one (one all_reduce across
+        # ranks)
+        ts, tt = reduce_sum(torch.stack([_dot(t, s), _dot(t, t)]))
+        omega = ts / safe(tt)
+        x_new = x + alpha * phat + omega * shat
+        r_new = s - omega * t
+        rho_new, rr = reduce_sum(torch.stack([_dot(r0, r_new),
+                                              _dot(r_new, r_new)]))
+        beta = (rho_new / safe(rho)) * (alpha / safe(omega))
+        p_new = r_new + beta * (p - omega * v)
+        rn_new = torch.sqrt(rr)
+
+        on = st.active
+
+        def keep(new, old):
+            return torch.where(on, new, old)
+
+        k = st.k + on.long()
+        rn = keep(rn_new, st.rn)
+        return st._replace(
+            x=keep(x_new, x), r=keep(r_new, r), p=keep(p_new, p),
+            rho=keep(rho_new, rho), rn=rn, k=k,
+            active=on & self.cond(rn, ops.tol, k),
+        )
+
+    def round_end(self, st: _BiCGState, ops: _BiCGOps):
+        """The true residual at the end of a round, and the round test."""
+        rnorm = self.norm(ops.b - ops.matvec(st.x))
+        rnd = st.rnd + 1
+        st = st._replace(rnorm=rnorm, rnd=rnd,
+                         go=self.round_cond(rnorm, ops.tol, st.k, rnd))
+        return st, self.flags(st, ops.tol)
+
+
+def bicgstab_solve(program: Program, setup: Callable, *args,
+                   rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL,
+                   max_iterations: int = 1000,
+                   reduce_sum: Callable = _identity,
+                   name: str = "bicgstab") -> KrylovResult:
+    """Right-preconditioned BiCGStab for A x = b from x = 0, where
+    (matvec, precond, b) = setup(*args) is evaluated inside the solve's
+    first piece (so that a Newton iteration can put its Jacobian there).
+
+    Each convergence-by-recurrence re-evaluates the TRUE residual
+    b - A x and, if it is still above tol, restarts the recurrence from
+    the current iterate with a fresh shadow vector (at most MAX_ROUNDS
+    rounds), exactly as the JAX package does, so iteration counts and x
+    match. Matvecs: 1 + 2 rounds + 2 (iterations + masked iterations),
+    plus 1 when no round runs (the first round's start is computed with
+    the solve's start). Host reads: one per chunk and one per round."""
+    solver = _BiCGStab(rtol, atol, max_iterations, reduce_sum, CHUNK)
+    K = solver.chunk
+    syncs0 = program.host_syncs
+    ops, st, flags = program.run(
+        f"{name}.start", lambda *a: solver.start(setup, *a), *args)
+    active, k, go, conv = program.read(flags)
+    chunks, rounds, matvecs = 1, 0, 2 + 2 * K
+    while go:
+        while active:
+            st, flags = program.loop(f"{name}.chunk", solver.iterations,
+                                     st, ops)
+            active, k, go, conv = program.read(flags)
+            chunks += 1
+            matvecs += 2 * K
+        st, flags = program.loop(f"{name}.round_end", solver.round_end,
+                                 st, ops)
+        active, k, go, conv = program.read(flags)
+        rounds += 1
+        matvecs += 1
+        if not go:
+            break
+        st, flags = program.loop(f"{name}.restart", solver.restart, st, ops)
+        active, k, go, conv = program.read(flags)
+        chunks += 1
+        matvecs += 1 + 2 * K
+    return KrylovResult(
+        x=st.x, iterations=k, residual_norm=st.rnorm,
+        converged=bool(conv), host_syncs=program.host_syncs - syncs0,
+        matvecs=matvecs, masked_iterations=chunks * K - k,
+    )
 
 
 def bicgstab(
@@ -49,77 +247,11 @@ def bicgstab(
     max_iterations: int = 1000,
     reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> KrylovResult:
-    """Right-preconditioned BiCGStab for A x = b from x = 0.
-
-    Each convergence-by-recurrence re-evaluates the TRUE residual
-    b - A x and, if it is still above tol, restarts the recurrence from
-    the current iterate with a fresh shadow vector (at most MAX_ROUNDS
-    rounds), exactly as the JAX package does, so iteration counts
-    match."""
-    if precond is None:
-        precond = lambda v: v  # noqa: E731
-    syncs = 0
-    matvecs = 0
-
-    def A(v):
-        nonlocal matvecs
-        matvecs += 1
-        return matvec(v)
-
-    def above_tol(rnorm) -> bool:
-        # the one place a flag crosses to the host
-        nonlocal syncs
-        syncs += 1
-        return bool((rnorm > tol) & torch.isfinite(rnorm))
-
-    def dot(a, c):
-        return reduce_sum(_dot(a, c))
-
-    def norm(a):
-        return torch.sqrt(dot(a, a))
-
-    tiny = torch.finfo(b.dtype).tiny
-    x = torch.zeros_like(b)
-    tol = torch.clamp_min(rtol * norm(b), atol)
-
-    def safe(v):
-        return torch.where(v != 0, v, tiny)
-
-    k = 0
-    rnd = 0
-    rnorm = norm(b - A(x))
-    while k < max_iterations and rnd < MAX_ROUNDS and above_tol(rnorm):
-        r = b - A(x)
-        r0 = r
-        p = r
-        rho = dot(r, r)
-        rn = norm(r)
-        while k < max_iterations and above_tol(rn):
-            phat = precond(p)
-            v = A(phat)
-            alpha = rho / safe(dot(r0, v))
-            s = r - alpha * v
-            shat = precond(s)
-            t = A(shat)
-            # dots that share a reduction go in one (one all_reduce
-            # across ranks)
-            ts, tt = reduce_sum(torch.stack([_dot(t, s), _dot(t, t)]))
-            omega = ts / safe(tt)
-            x = x + alpha * phat + omega * shat
-            r = s - omega * t
-            rho_new, rr = reduce_sum(torch.stack([_dot(r0, r), _dot(r, r)]))
-            beta = (rho_new / safe(rho)) * (alpha / safe(omega))
-            p = r + beta * (p - omega * v)
-            rho = rho_new
-            k += 1
-            rn = torch.sqrt(rr)
-        rnorm = norm(b - A(x))
-        rnd += 1
-    syncs += 1
-    converged = bool((rnorm <= tol) & torch.isfinite(rnorm))
-    return KrylovResult(
-        x=x, iterations=k, residual_norm=rnorm, converged=converged,
-        host_syncs=syncs, matvecs=matvecs,
+    """Right-preconditioned BiCGStab for A x = b from x = 0, run eagerly
+    (bicgstab_solve)."""
+    return bicgstab_solve(
+        Program(), lambda: (matvec, precond, b), rtol=rtol, atol=atol,
+        max_iterations=max_iterations, reduce_sum=reduce_sum,
     )
 
 

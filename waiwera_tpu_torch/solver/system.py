@@ -10,8 +10,10 @@ direct steady state: c_L = 0, dt_eff = -1, const = 0.
 
 The block Jacobian is exact forward-mode AD: because balances and
 sources are cell-local and fluxes are face-local in the gathered pair
-representation, npv jvps over the cell chain plus 2*npv over the flux
-chain give every block directly. Regions are frozen during
+representation, npv tangents of the cell chain plus 2*npv of the flux
+chain give every block directly; each chain is one torch.func.jvp
+vmapped over its seeds, so its primal runs once per Jacobian (the JAX
+package's jax.linearize). Regions are frozen during
 differentiation (doc/dev/code/index.md:37-39). Face data moves by
 indexed gathers and fixed-order scatter-sums (ops/segment.py) in the
 canonical face order.
@@ -29,7 +31,7 @@ from waiwera_tpu_torch.mesh.device import MeshArrays
 from waiwera_tpu_torch.ops import dia, ell
 from waiwera_tpu_torch.ops.segment import SegmentSum
 from waiwera_tpu_torch.physics import assembly
-from waiwera_tpu_torch.physics.state import FluidState, RockState
+from waiwera_tpu_torch.physics.state import INT_FIELDS, FluidState, RockState
 from waiwera_tpu_torch.sim.sources import source_inflows
 from waiwera_tpu_torch.solver import bsr, precond
 from waiwera_tpu_torch.solver.smallblocks import (
@@ -38,12 +40,31 @@ from waiwera_tpu_torch.solver.smallblocks import (
     em_from_batch,
     invert_blocks_em,
 )
+from waiwera_tpu_torch.utils.interpolation import scalar_like
 
 
 class MethodCoeffs(NamedTuple):
-    c_lhs: float
-    dt_eff: float
+    c_lhs: torch.Tensor  # 0-d f64 (a Python number is accepted too)
+    dt_eff: torch.Tensor  # 0-d f64 (a Python number is accepted too)
     const: torch.Tensor  # [N, npv]
+
+
+def time_tensor(t, device) -> torch.Tensor:
+    """A time as a 0-d f64 tensor on `device`: a tensor is cast there, a
+    Python number filled (a fill, not a copy from the host). Times reach
+    the step's ops as tensors, so that a captured step replays the
+    values of each try, not those of the try it was captured at."""
+    if isinstance(t, torch.Tensor):
+        return t.to(dtype=torch.float64, device=device)
+    return torch.full((), float(t), dtype=torch.float64, device=device)
+
+
+def _fluid_of(ints, floats) -> FluidState:
+    """A FluidState from its integer fields (INT_FIELDS order) and its
+    floating fields (field order)."""
+    it_i, it_f = iter(ints), iter(floats)
+    return FluidState(*(next(it_i) if k in INT_FIELDS else next(it_f)
+                        for k in FluidState._fields))
 
 
 def method_coeffs(
@@ -52,26 +73,36 @@ def method_coeffs(
     """Residual coefficients of the time integration methods
     (timestepper.F90:345-452): backward Euler, variable-step BDF2
     (backward Euler on the run's first step, `first` > 0.5) and direct
-    steady state. dt, dt_last and first are Python numbers (or 0-d
-    tensors, read on the host); the arithmetic is f64 in the JAX
-    package's order."""
+    steady state. dt, dt_last and first are 0-d tensors or Python
+    numbers (made 0-d f64 tensors on lhs_last's device); nothing is read
+    on the host, and the arithmetic is f64 in the JAX package's order.
+    directss is a static branch of the method."""
     if method == "directss":
-        return MethodCoeffs(c_lhs=0.0, dt_eff=-1.0,
+        return MethodCoeffs(c_lhs=lhs_last.new_zeros(()),
+                            dt_eff=lhs_last.new_full((), -1.0),
                             const=torch.zeros_like(lhs_last))
-    dt = float(dt)
-    if method == "bdf2" and not float(first) > 0.5:
-        r = dt / float(dt_last)
+    dev = lhs_last.device
+    dt = time_tensor(dt, dev)
+    if method == "bdf2":
+        r = dt / time_tensor(dt_last, dev)
+        first = time_tensor(first, dev) > 0.5
         return MethodCoeffs(
-            c_lhs=1.0 + 2.0 * r,
-            dt_eff=dt * (r + 1.0),
-            const=-((r + 1.0) * (r + 1.0)) * lhs_last + (r * r) * lhs_last2,
+            c_lhs=torch.where(first, 1.0, 1.0 + 2.0 * r),
+            dt_eff=torch.where(first, dt, dt * (r + 1.0)),
+            const=torch.where(
+                first, -lhs_last,
+                -((r + 1.0) * (r + 1.0)) * lhs_last + (r * r) * lhs_last2),
         )
-    return MethodCoeffs(c_lhs=1.0, dt_eff=dt, const=-lhs_last)
+    return MethodCoeffs(c_lhs=torch.ones_like(dt), dt_eff=dt,
+                        const=-lhs_last)
 
 
 class System:
     """Couples an EOS, mesh and sources into residual and Jacobian
     evaluations on dense tensors."""
+
+    # one rank's share of a domain-decomposed system (parallel/spmd.py)
+    distributed = False
 
     def __init__(self, eos, mesh: MeshArrays, network=None):
         self.eos = eos
@@ -256,76 +287,80 @@ class System:
         J[l,r] lr2 [b*b, F], J[r,l] rl2 [b*b, F]), J[i,j][e,v] =
         dr_i[e]/dy_j[v] in row e*npv+v.
 
+        Each chain's primal is evaluated once, as jax.linearize does in
+        the JAX package: one torch.func.jvp of the cell chain, vmapped
+        over the npv seeds (rows of the identity), and one jvp of the
+        pair flux function of both sides, vmapped over 2*npv seeds (left
+        seeds, then right). The primal does not depend on the batched
+        tangent, so vmap runs it unbatched (out_dims=None asserts it).
+
         tangent_dtype=torch.float32 evaluates the whole chain (primal and
         tangents) in f32, as the JAX package does by tracing it under
         jax.enable_x64(False): y, rock, geometry and coefficients are
         cast once, and every constant follows its input's dtype. The
-        residual itself stays f64 (it is not computed here)."""
+        residual itself stays f64 (it is not computed here). Nothing is
+        read on the host."""
         npv = self.npv
         dtype = y.dtype if tangent_dtype is None else tangent_dtype
         y = y.to(dtype)
         rock = rock.to(dtype)
         mesh = self.mesh_as(dtype)
-        c_lhs = float(coeffs.c_lhs)
-        dt_eff = float(coeffs.dt_eff)
+        c_lhs = scalar_like(coeffs.c_lhs, y)
+        dt_eff = scalar_like(coeffs.dt_eff, y)
         n = mesh.num_cells
         cl, cr = self.cl, self.cr
-
-        def cond_or_zero(fluid, c):
-            return fluid.pressure.new_zeros(n) if c is None else c
-
-        fluid, cond, _ = self.derived_state(y, region, rock)
-        cond = cond_or_zero(fluid, cond)
 
         def cell_chain(yv):
             # cell-local chain: fluid state, conductivity, balances and
             # source inflows (each depends on its own cell only, so one
-            # jvp per primary variable gives their diagonal blocks)
+            # seed per primary variable gives their diagonal blocks); the
+            # fluid's integer fields ride along as aux
             f, c, _ = self.derived_state(yv, region, rock)
-            return (f.float_fields(), cond_or_zero(f, c), self.lhs(f, rock),
-                    self.source_term(f, t0, t1))
+            c = f.pressure.new_zeros(n) if c is None else c
+            ints = tuple(getattr(f, k) for k in INT_FIELDS)
+            return (f.float_fields(), c, self.lhs(f, rock),
+                    self.source_term(f, t0, t1)), ints
 
-        d_fluid, d_cond, dL, dq = [], [], [], []
-        for v in range(npv):
-            seed = torch.zeros_like(y)
-            seed[:, v] = 1.0
-            _, (df, dc, dLv, dqv) = torch.func.jvp(cell_chain, (y,), (seed,))
-            d_fluid.append(df)
-            d_cond.append(dc)
-            dL.append(dLv)
-            dq.append(dqv)
+        seeds = torch.eye(npv, dtype=dtype, device=y.device)[:, None, :] \
+            .expand(npv, n, npv)
+        (floats, cond, _, _), (d_fluid, d_cond, dL, dq), ints = \
+            torch.func.vmap(
+                lambda seed: torch.func.jvp(cell_chain, (y,), (seed,),
+                                            has_aux=True),
+                out_dims=(None, 0, None),
+            )(seeds)
+        fluid = _fluid_of(ints, floats)
 
-        # face fluxes and their side Jacobians: jvps of the pair flux
-        # function against the left or the right cell's state
+        # face fluxes and their side Jacobians: one jvp of the pair flux
+        # function of both sides' states, vmapped over the left cell's
+        # seeds and then the right cell's
         perm_l, perm_r = assembly.face_permeability_sides(rock, mesh)
         fl, fr = fluid.index(cl), fluid.index(cr)
-        cdl, cdr = cond[cl], cond[cr]
         iso = self.isothermal
 
-        def flux_left(fl_floats, c_l):
+        def flux_pair(fl_floats, fr_floats, c_l, c_r):
             return self._flux_pairs(
-                fl.with_float_fields(fl_floats), fr, perm_l, perm_r,
-                None if iso else c_l, None if iso else cdr, mesh,
-            )
+                fl.with_float_fields(fl_floats),
+                fr.with_float_fields(fr_floats), perm_l, perm_r,
+                None if iso else c_l, None if iso else c_r, mesh,
+            )[:, :npv]
 
-        def flux_right(fr_floats, c_r):
-            return self._flux_pairs(
-                fl, fr.with_float_fields(fr_floats), perm_l, perm_r,
-                None if iso else cdl, None if iso else c_r, mesh,
-            )
+        def side(t, cells, right):
+            # the seeds' tangents at one side's cells, zero under the
+            # other side's seeds: [2 npv, F, ...]
+            g = t[:, cells]
+            z = torch.zeros_like(g)
+            return torch.cat([z, g] if right else [g, z])
 
-        dflux_l, dflux_r = [], []
-        for v in range(npv):
-            dfl = tuple(a[cl] for a in d_fluid[v])
-            _, t = torch.func.jvp(
-                flux_left, (fl.float_fields(), cdl), (dfl, d_cond[v][cl])
-            )
-            dflux_l.append(t[:, :npv])
-            dfr = tuple(a[cr] for a in d_fluid[v])
-            _, t = torch.func.jvp(
-                flux_right, (fr.float_fields(), cdr), (dfr, d_cond[v][cr])
-            )
-            dflux_r.append(t[:, :npv])
+        fl_t = tuple(side(a, cl, False) for a in d_fluid)
+        fr_t = tuple(side(a, cr, True) for a in d_fluid)
+        primals = (fl.float_fields(), fr.float_fields(), cond[cl], cond[cr])
+        _, dflux = torch.func.vmap(
+            lambda tl, tr, cl_t, cr_t: torch.func.jvp(
+                flux_pair, primals, (tl, tr, cl_t, cr_t)),
+            out_dims=(None, 0),
+        )(fl_t, fr_t, side(d_cond, cl, False), side(d_cond, cr, True))
+        dflux_l, dflux_r = dflux[:npv], dflux[npv:]
 
         # -- assemble blocks, element-major
         area = mesh.face_area
@@ -398,7 +433,7 @@ class System:
         return ell.to_ell(mat, self.ell_tables, dtype).matvec
 
     def make_linear_operator(self, mat: bsr.BSRMatrix, pc_name: str,
-                             dtype=None):
+                             dtype=None, sweeps: int = dia.DILU_SWEEPS):
         """(matvec, preconditioner) from assembled BSR data through the
         ELL layout (the JAX package's non-banded route), with every
         preconditioner of precond.make_preconditioner (line and cpr
@@ -407,9 +442,10 @@ class System:
         split = (self.ilu_split if pc_name in ("asm", "ilu", "dilu", "sgs")
                  else None)
         return mv, precond.make_preconditioner(
-            pc_name, mat, split=split, sweeps=dia.DILU_SWEEPS, dtype=dtype)
+            pc_name, mat, split=split, sweeps=sweeps, dtype=dtype)
 
-    def linear_operator_from_parts(self, parts, pc_name: str, dtype=None):
+    def linear_operator_from_parts(self, parts, pc_name: str, dtype=None,
+                                   sweeps: int = dia.DILU_SWEEPS):
         """(matvec, preconditioner) from block parts.
 
         Banded and hybrid meshes: bands filled by index in the parts'
@@ -420,10 +456,12 @@ class System:
         mesh factors the banded part only). "lu" factors the assembled
         BSR matrix densely beside the band SpMV of a banded mesh. Other
         meshes, and "lu" on a hybrid mesh, take make_linear_operator on
-        assembled BSR data, as in the JAX package."""
+        assembled BSR data, as in the JAX package. sweeps: the DILU's
+        fixed-point sweeps per triangular solve."""
         if self.bands is None or (pc_name == "lu" and self.dia is None):
             return self.make_linear_operator(self.assemble_bsr(parts),
-                                             pc_name, dtype=dtype)
+                                             pc_name, dtype=dtype,
+                                             sweeps=sweeps)
         diag2, lr2, rl2 = parts
         m64 = dia.bands_from_blocks(self.bands, self.band_fill, diag2, lr2,
                                     rl2)
@@ -459,7 +497,7 @@ class System:
                 levels, dims = built
                 pc = mg.cpr_apply(levels, dims, mv, pc, self.mesh.num_cells)
         elif pc_name in ("asm", "ilu", "dilu", "sgs"):
-            pc = dia.dia_dilu_em(m64, dtype=dtype)
+            pc = dia.dia_dilu_em(m64, sweeps=sweeps, dtype=dtype)
         elif pc_name == "lu":
             pc = precond.lu(self.assemble_bsr(parts), dtype=dtype)
         else:
