@@ -179,14 +179,34 @@ Phases (any failure raises and the exit code is nonzero):
    counts and final state bit for bit; (d) the same model with BDF2 at
    first steps of 1e4 and 3e4 s, both runs on one Simulation through
    one captured program, each equal to its eager twin bit for bit.
+   (e) phase 9's production field (128 x 64 x 64, 3 steps; its tracer
+   step a program of its own) and (f) phase 10 (a)'s 524,288-wedge
+   field (ELL route, lgmres + asm, monitor on, 3 steps), each through
+   the graph program on one Simulation and eagerly on another: a first
+   run in each mode (the graph run captures), then 3 timed rounds in
+   turns, the order reversed every other round: every run's tries,
+   Newton, Krylov and GMRES tracer iterations, matvecs, monitor lines
+   and final state (y, regions, tracers, the network's flows) bitwise
+   equal to the first graph run's; printed: (e) the tracer solve's
+   seconds per step in both modes, its host reads per solve and
+   captures, (f) the run loops, host reads per try, capture seconds and
+   LGMRES cycles, each with the medians of the timed rounds (graph
+   replays against eager runs), their ratio, and the first runs apart,
+   with the card's name and power limit; then one more
+   run in each mode with every piece timed by CUDA events, the graph
+   run under torch.profiler (the device's busy seconds and share of the
+   wall, the kernels by device time); then PyTorch's row gathers
+   (x[index], index_select) against ops/segment.py RowGather at the
+   Krylov loops' shapes (ROW_GATHER_SHAPES), equal bit for bit, timed in
+   turns.
    `python3 chip_smoke.py --phase 12` runs phases 1, 2 and 12 alone.
-   Phases 4 (the bench's operating points), 6, 7, 8, 9 and 10 (c) run
-   their covered models as graphs (asserted: step_program "graph" in
-   phases 4 and 7, and in every model run the program that
-   step_program_mode gives its configuration); phase 11's ranks and
-   phase 10's ELL, lgmres, bcgsl and lu runs are eager by their
-   configuration, as is the C15 step cost (its A/B switch patches
-   Python).
+   Phases 4 (the bench's operating points and its stages), 6, 7, 8, 9
+   (its tracer step too, asserted) and 10 (a) and (c) run their covered
+   models as graphs (asserted: step_program "graph" in phases 4 and 7,
+   and in every model run the program that step_program_mode gives its
+   configuration); phase 11's ranks, phase 10's bcgsl and lu runs are
+   eager by their configuration, as is the C15 step cost (its A/B
+   switch patches Python).
 
 Prints each bench section's wall time on its own line, then the model
 runs' times and counts, the bench's full JSON record, one JSON line
@@ -1666,6 +1686,8 @@ def network_phase(workdir, counters, log=log):
                            f"{matvecs}")
     check_network_run(ts, rock_seen)
     st = ts.stats
+    if st["tracer_program"] != "graph":
+        raise RuntimeError(f"phase 9: tracer program {st['tracer_program']}")
     nsolve = len(st["tracer_iterations"])
     rec = {
         "size": list(FLAGSHIP), "unknowns": ts.final_y.numel(),
@@ -1682,6 +1704,10 @@ def network_phase(workdir, counters, log=log):
         "tracer_solve_s_per_step": st["tracer_seconds"] / max(nsolve, 1),
         "tracer_host_syncs_per_solve": st["host_syncs_tracer"]
         / max(nsolve, 1),
+        "step_program": st["step_program"],
+        "tracer_program": st["tracer_program"],
+        "tracer_graph_captures": st["tracer_graph_captures"],
+        "tracer_graph_capture_seconds": st["tracer_graph_capture_seconds"],
         "flows_collect_s": flows_seconds(ts),
         "jacobian_parts_s": jacobian_seconds(ts),
         "jacobian_parts_s_phase8a_without_network": "0.17-0.19",
@@ -2121,8 +2147,8 @@ def scatter_mode(mode, calls=None):
     one index_add over the same index (mode "index_add", the scatter the
     fixed-order sums replaced; the faces took two then) or as shipped
     ("segment_sum"); calls, where given, gets one entry per add, the
-    ops it dispatches as shipped (a cat, a pad and an index_select and
-    an add per slot)."""
+    ops it dispatches as shipped (a cat, a pad and a gather and an add
+    per slot)."""
     from unittest import mock
 
     from waiwera_tpu_torch.ops.segment import SegmentSum
@@ -2135,11 +2161,11 @@ def scatter_mode(mode, calls=None):
         key = id(seg)
         if key not in index_of:
             idx = torch.empty(seg.size, dtype=torch.int64,
-                              device=seg.slots[0].device)
+                              device=seg.slots[0].index.device)
             rows = torch.arange(seg.num_rows, device=idx.device)
             for slot in seg.slots:
-                real = slot < seg.size
-                idx[slot[real]] = rows[real]
+                real = slot.index < seg.size
+                idx[slot.index[real]] = rows[real]
             index_of[key] = (seg, idx)
         return index_of[key][1]
 
@@ -2406,6 +2432,15 @@ def graph_flagship(log=log, rounds=GRAPH_ROUNDS):
     return rec
 
 
+def piece_split(timing):
+    """(piece, start, end) CUDA events -> {piece: {"ms", "n"}}."""
+    pieces = {}
+    for name, start, end in timing:
+        ms, n = pieces.get(name, (0.0, 0))
+        pieces[name] = (ms + start.elapsed_time(end), n + 1)
+    return {k: {"ms": ms, "n": n} for k, (ms, n) in pieces.items()}
+
+
 def step_split(step, call):
     """One step's time by piece (CUDA events around each piece: a
     graph's replay, or an eager piece with its host dispatch gaps; ms
@@ -2418,15 +2453,11 @@ def step_split(step, call):
     call(step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    pieces = {}
-    for name, start, end in step.timing:
-        ms, n = pieces.get(name, (0.0, 0))
-        pieces[name] = (ms + start.elapsed_time(end), n + 1)
+    pieces = piece_split(step.timing)
     step.timing = None
-    busy = sum(ms for ms, _ in pieces.values()) / 1e3
+    busy = sum(p["ms"] for p in pieces.values()) / 1e3
     return {"wall_s": wall, "pieces_s": busy, "pieces_share": busy / wall,
-            "pieces": {k: {"ms": ms, "n": n} for k, (ms, n) in
-                       pieces.items()}}
+            "pieces": pieces}
 
 
 GRAPH_CHUNKS = (4, 8, 16)  # krylov.CHUNK values timed in phase 12 (b)
@@ -2533,10 +2564,337 @@ def graph_twins(config, first_dts, log=log, label=""):
     return out
 
 
+# phase 12 (e)-(f): timed rounds of graph and eager runs, after a first
+# run in each mode (the graph run's captures, either's first-run set-up)
+GRAPH_MODEL_ROUNDS = 3
+
+
+def _run_record(ts, wall):
+    """The counts, times and final state of one Timestepper run of phase
+    12 (e)-(f)."""
+    st = ts.stats
+    net = ts.sim.sources
+    flows = None
+    if net is not None and net.num_sources:
+        dt = ts.accepted[-1][0]
+        flows = net.flows(ts.final_fluid, ts.final_time - dt,
+                          ts.final_time)[0]
+    return {
+        "tried": list(ts.tried), "wall_s": wall,
+        "run_loop_s": sum(st["step_seconds"]),
+        "counts": {k: st[k] for k in (
+            "tries", "newton_iterations", "linear_iterations", "matvecs",
+            "masked_krylov_iterations", "tracer_iterations",
+            "tracer_converged", "host_syncs_tracer")},
+        "state": (ts.final_y, ts.final_region, ts.final_tracer, flows),
+        "stats": st,
+    }
+
+
+def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
+                      monitor_lines=False, device=None):
+    """Timestepper runs of `config` through the graph program (one
+    Simulation, so that later runs replay the first one's captures) and
+    eagerly (another): a first run in each mode, then `rounds` timed
+    rounds in turns, the order reversed every other round. Every run's
+    tries, counts (flow and tracer iterations, matvecs) and final state
+    (y, regions, tracers, the network's flows over the last step) are
+    bitwise equal to the first graph run's; on the card, one more run in
+    each mode through profiled_run (the graph run under the profiler).
+    Returns each mode's timed runs, its first run under mode + "_first"
+    and its profiled run under mode + "_split" (device None: the CUDA
+    device)."""
+    from waiwera_tpu_torch.sim.simulation import Simulation
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+
+    sims = {}
+    for mode in ("graph", "eager"):
+        sims[mode] = Simulation(json.loads(json.dumps(config)),
+                                device=device)
+        sims[mode]._eager_step = mode == "eager"
+    runs = {"graph": [], "eager": []}
+    first = {}
+    for r in range(rounds + 1):
+        for mode in (("graph", "eager") if r % 2 == 0
+                     else ("eager", "graph")):
+            ts = Timestepper(json.loads(json.dumps(config)), sims[mode],
+                             logger=_QuietLog())
+            lines = LineCount(sys.stdout)
+            _sync(sims[mode].device)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(lines):
+                if not ts.run():
+                    raise RuntimeError(f"phase 12 {label}: {mode} run "
+                                       "aborted")
+            _sync(sims[mode].device)
+            rec = _run_record(ts, time.perf_counter() - t0)
+            rec["monitor_lines"] = lines.count
+            if r == 0:
+                first[mode] = rec
+            else:
+                runs[mode].append(rec)
+            del ts
+    ref = first["graph"]
+    for mode, recs in runs.items():
+        for i, rec in enumerate([first[mode]] + recs):
+            if rec["stats"]["step_program"] != mode or (
+                    rec["counts"]["tracer_iterations"]
+                    and rec["stats"]["tracer_program"] != mode):
+                raise RuntimeError(
+                    f"phase 12 {label}: {mode} run {i} ran the programs "
+                    f"{rec['stats']['step_program']}, "
+                    f"{rec['stats']['tracer_program']}")
+            if rec["tried"] != ref["tried"] or rec["counts"] != ref["counts"]:
+                raise RuntimeError(
+                    f"phase 12 {label}: {mode} run {i} differs: "
+                    f"{rec['tried']} {rec['counts']} against "
+                    f"{ref['tried']} {ref['counts']}")
+            if monitor_lines and (rec["monitor_lines"] == 0 or rec[
+                    "monitor_lines"] != ref["monitor_lines"]):
+                raise RuntimeError(f"phase 12 {label}: monitor lines "
+                                   f"{rec['monitor_lines']}, "
+                                   f"{ref['monitor_lines']}")
+            _same_state(rec["state"], ref["state"],
+                        f"phase 12 {label} {mode} run {i} final state")
+    for mode, sim in sims.items():
+        if sim.device.type == "cuda":
+            # the kernel table of the graph run only: the same kernels
+            # run eagerly, and a profile of the eager run costs ~30 s
+            runs[mode + "_split"] = profiled_run(sim, config,
+                                                 profile=mode == "graph")
+    for mode in ("graph", "eager"):
+        runs[mode + "_first"] = first[mode]
+    del sims
+    release()
+    return runs
+
+
+def kernel_profile(fn, top=12):
+    """fn() once under torch.profiler (CPU and CUDA activities): its wall
+    (host clock, the card synchronised), the device's busy seconds (the
+    sum of the kernels' self device time) and share of the wall, and the
+    `top` kernels by device time (name, calls, ms). Returns (fn's value,
+    record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return out, {
+        "wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+        "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+                for e in kern[:top]]}
+
+
+def profiled_run(sim, config, profile=True):
+    """One more Timestepper run of `config` on `sim`, each piece of its
+    tries and tracer steps timed with CUDA events, with profile the run
+    under kernel_profile: {"pieces", "run_loop_s"(, "profile")}."""
+    from waiwera_tpu_torch.sim.timestepper import Timestepper
+
+    ts = Timestepper(json.loads(json.dumps(config)), sim, logger=_QuietLog())
+    for fn in (ts.step_fn, ts.tracer_step_fn):
+        if fn is not None:
+            fn.timing = []
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        ok, prof = kernel_profile(ts.run) if profile else (ts.run(), None)
+    if not ok:
+        raise RuntimeError("phase 12: the profiled run aborted")
+    timing = ts.step_fn.timing + (ts.tracer_step_fn.timing
+                                  if ts.tracer_step_fn is not None else [])
+    out = {"pieces": piece_split(timing),
+           "run_loop_s": sum(ts.stats["step_seconds"])}
+    if profile:
+        out["profile"] = prof
+    return out
+
+
+def _quartiles(values):
+    return statistics.quantiles(values, n=4, method="inclusive")
+
+
+def graph_production_field(log=log, rounds=GRAPH_MODEL_ROUNDS):
+    """Phase 12 (e): phase 9's production field (network_model_config at
+    FLAGSHIP, 3 steps) through graphs and eagerly in turns (flow tries
+    and the tracer step): bitwise equal with equal counts; the tracer
+    solve's seconds per step in both modes, its host reads per solve and
+    its captures."""
+    from waiwera_tpu_torch import bench
+
+    cfg = network_model_config(*FLAGSHIP, steps=3)
+    cfg.pop("output", None)
+    runs = graph_model_turns(cfg, "(e)", log=log, rounds=rounds)
+    rec = {"size": list(FLAGSHIP), "rounds": rounds, "card": bench.card()}
+
+    def tracer_per_step(s):
+        return s["tracer_seconds"] / len(s["tracer_iterations"])
+
+    for mode in ("graph", "eager"):
+        recs = runs[mode]
+        st = [r["stats"] for r in recs]
+        first = runs[mode + "_first"]["stats"]
+        per_step = [tracer_per_step(s) for s in st]
+        loop = [r["run_loop_s"] for r in recs]
+        rec[mode] = {
+            "tracer_solve_s_per_step": per_step,
+            "tracer_solve_s_per_step_median": _quartiles(per_step)[1],
+            "run_loop_s": loop,
+            "run_loop_s_median": _quartiles(loop)[1],
+            "tracer_host_syncs_per_solve": st[0]["host_syncs_tracer"]
+            / len(st[0]["tracer_iterations"]),
+            "tracer_graph_captures": [s["tracer_graph_captures"]
+                                      for s in st],
+            "graph_captures": [s["graph_captures"] for s in st],
+            "host_syncs_per_try": [
+                (s["host_syncs_step"] + s["host_syncs_timestepper"])
+                / s["tries"] for s in st],
+            # the first run: the graph run's captures included
+            "first_run": {
+                "tracer_solve_s_per_step": tracer_per_step(first),
+                "run_loop_s": runs[mode + "_first"]["run_loop_s"],
+                "tracer_graph_captures": first["tracer_graph_captures"],
+                "tracer_graph_capture_seconds": first[
+                    "tracer_graph_capture_seconds"],
+                "graph_captures": first["graph_captures"],
+                "graph_capture_seconds": first["graph_capture_seconds"]},
+        }
+    c = runs["graph"][0]["counts"]
+    rec.update(tries=c["tries"], newton=c["newton_iterations"],
+               bicgstab=c["linear_iterations"], matvecs=c["matvecs"],
+               gmres_iterations_per_tracer_solve=c["tracer_iterations"])
+    # the timed rounds' medians: replays against eager runs
+    rec["tracer_graph_over_eager"] = (
+        rec["graph"]["tracer_solve_s_per_step_median"]
+        / rec["eager"]["tracer_solve_s_per_step_median"])
+    rec["run_loop_graph_over_eager"] = (rec["graph"]["run_loop_s_median"]
+                                        / rec["eager"]["run_loop_s_median"])
+    if rec["graph"]["first_run"]["tracer_graph_captures"] != 3 or any(
+            rec["graph"]["tracer_graph_captures"]):
+        raise RuntimeError(
+            "phase 12 (e): tracer captures "
+            f"{rec['graph']['first_run']['tracer_graph_captures']} in the "
+            f"first run, {rec['graph']['tracer_graph_captures']} after")
+    log(f"phase 12 (e) {json.dumps(rec)}")
+    rec["split"] = {m: runs[m + "_split"] for m in ("graph", "eager")}
+    log(f"phase 12 (e) split {json.dumps(rec['split'])}")
+    return rec
+
+
+def graph_wedge_field(workdir, log=log, rounds=GRAPH_MODEL_ROUNDS):
+    """Phase 12 (f): phase 10 (a)'s wedge field (WEDGE_FIELD from gmsh
+    4.1 binary, the ELL route, lgmres + asm, the monitor on, 3 steps)
+    through graphs and eagerly in turns: bitwise equal with equal counts
+    and monitor lines; the run loops, host reads per try, capture
+    seconds and LGMRES cycles."""
+    from waiwera_tpu_torch import bench
+
+    nx, ny, nz = WEDGE_FIELD
+    verts, wedges, pos = wedge_mesh(nx, ny, nz)
+    path = os.path.join(workdir, "wedge_field_p12.msh")
+    write_gmsh(path, verts, [("wedge", wedges)], version="4.1", binary=True)
+    del verts, wedges
+    cfg = wedge_model_config(path, nx, ny, nz, pos, steps=3,
+                             solver=LGMRES_ASM, monitor=True)
+    cfg.pop("output", None)
+    runs = graph_model_turns(cfg, "(f)", log=log, rounds=rounds,
+                             monitor_lines=True)
+    c = runs["graph"][0]["counts"]
+    restart = 30  # NewtonParams.linear_restart, the model's default
+    cycles, rem = divmod(c["matvecs"] - c["newton_iterations"], restart + 1)
+    if rem:
+        raise RuntimeError(f"phase 12 (f): matvecs {c['matvecs']} are not "
+                           f"1 + 31 cycles per solve")
+    rec = {"wedges": 2 * nx * ny * nz, "rounds": rounds, "card": bench.card(),
+           "tries": c["tries"], "newton": c["newton_iterations"],
+           "lgmres_iterations": c["linear_iterations"],
+           "lgmres_cycles": cycles, "matvecs": c["matvecs"],
+           "monitor_lines": runs["graph"][0]["monitor_lines"]}
+    for mode in ("graph", "eager"):
+        recs = runs[mode]
+        st = [r["stats"] for r in recs]
+        loop = [r["run_loop_s"] for r in recs]
+        first = runs[mode + "_first"]
+        rec[mode] = {
+            "run_loop_s": loop, "run_loop_s_median": _quartiles(loop)[1],
+            "wall_s": [r["wall_s"] for r in recs],
+            "host_syncs_per_try": [
+                (s["host_syncs_step"] + s["host_syncs_timestepper"])
+                / s["tries"] for s in st],
+            "graph_captures": [s["graph_captures"] for s in st],
+            # the first run: the graph run's captures included
+            "first_run": {
+                "run_loop_s": first["run_loop_s"],
+                "wall_s": first["wall_s"],
+                "graph_captures": first["stats"]["graph_captures"],
+                "graph_capture_seconds": first["stats"][
+                    "graph_capture_seconds"]},
+        }
+    # the timed rounds' medians: replays against eager runs
+    rec["run_loop_graph_over_eager"] = (rec["graph"]["run_loop_s_median"]
+                                        / rec["eager"]["run_loop_s_median"])
+    if any(rec["graph"]["graph_captures"]) or not rec["graph"][
+            "first_run"]["graph_captures"]:
+        raise RuntimeError(
+            "phase 12 (f): graph captures "
+            f"{rec['graph']['first_run']['graph_captures']} in the first "
+            f"run, {rec['graph']['graph_captures']} after")
+    log(f"phase 12 (f) {json.dumps(rec)}")
+    rec["split"] = {m: runs[m + "_split"] for m in ("graph", "eager")}
+    log(f"phase 12 (f) split {json.dumps(rec['split'])}")
+    return rec
+
+
+ROW_GATHER_SHAPES = (  # (rows, width, dtype) of the Krylov loops' gathers
+    (557_056, 2, torch.float64),  # the wedge field's ELL and DILU
+    (532_480, 2, torch.float64),  # the production field's tracers
+    (557_056, 4, torch.float64),  # 2 x 2 f64 blocks
+    (532_480, 3, torch.float32),  # the flagship's f32 rows
+)
+
+
+def row_gather_cost(m=1_300_000, log=log):
+    """PyTorch's row gathers (x[index], index_select) against
+    ops/segment.py RowGather at the Krylov loops' shapes: `m` rows of an
+    index near the diagonal (a face list), paired_ms in turns (CUDA
+    events); the results must be equal bit for bit. Returns the
+    record."""
+    from waiwera_tpu_torch.ops.segment import RowGather
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = []
+    for n, b, dtype in ROW_GATHER_SHAPES:
+        x = torch.randn((n, b), generator=gen, device="cuda", dtype=dtype)
+        near = torch.randint(-50, 50, (m,), generator=gen, device="cuda")
+        index = (torch.arange(m, device="cuda") * n // m + near).clamp(0, n - 1)
+        rows = RowGather(index)
+        if not torch.equal(rows(x), x[index]):
+            raise RuntimeError("RowGather differs from x[index]")
+        t = paired_ms({"index": lambda: x[index],
+                       "index_select": lambda: x.index_select(0, index),
+                       "row_gather": lambda: rows(x)}, rounds=6)
+        nbytes = m * (b * x.element_size() * 2 + 8)
+        rec.append({"rows": n, "width": b, "dtype": str(dtype), "index": m,
+                    **{k + "_ms": v[1] for k, v in t.items()},
+                    "bound_ms": nbytes / PEAK_BYTES_S * 1e3})
+    log(f"phase 12 row gathers {json.dumps(rec)}")
+    return rec
+
+
 def graph_phase(log=log):
     """Phase 12: (a)-(b) graph_flagship; (c) phase 7's 48 x 32 x 32 JSON
     model from a first step size that is refused; (d) two BDF2 runs at
-    other first step sizes through one captured program."""
+    other first step sizes through one captured program; (e) phase 9's
+    production field and (f) phase 10 (a)'s wedge field through graphs
+    and eagerly in turns."""
     from waiwera_tpu_torch import bench
 
     t0 = time.perf_counter()
@@ -2550,8 +2908,15 @@ def graph_phase(log=log):
     cfg = model_config(*bench.REDUCED, method="bdf2", steps=3)
     cfg.pop("output")
     bdf2 = graph_twins(cfg, GRAPH_BDF2_DTS, log=log, label="(d)")
+    release()
+    field = graph_production_field(log=log)
+    with tempfile.TemporaryDirectory() as workdir:
+        wedge = graph_wedge_field(workdir, log=log)
+    gathers = row_gather_cost(log=log)
     log(f"phase 12 (graph program) {time.perf_counter() - t0:.2f} s")
-    return {"flagship": flag, "refused": refused, "bdf2": bdf2}
+    return {"flagship": flag, "refused": refused, "bdf2": bdf2,
+            "production_field": field, "wedge_field": wedge,
+            "row_gathers": gathers}
 
 
 # phase 11: the multi-device run, ranks sharing the card through gloo

@@ -30,10 +30,9 @@ def laplacian_pair(n, b, seed=0):
     mj = jbsr.assemble(sj, jnp.asarray(diag), jnp.asarray(off),
                        jnp.asarray(low), jnp.asarray(lr), jnp.asarray(rl))
     st = tbsr.build_structure(n, face_cells, b)
-    lr, rl = tbsr.face_block_positions(st, face_cells)
-    mt = tbsr.assemble(st, torch.as_tensor(diag), torch.as_tensor(off),
-                       torch.as_tensor(low), torch.as_tensor(lr),
-                       torch.as_tensor(rl))
+    mt = tbsr.assemble(st, tbsr.assembly(st, face_cells),
+                       torch.as_tensor(diag), torch.as_tensor(off),
+                       torch.as_tensor(low))
     np.testing.assert_array_equal(np_(mt.data), np.asarray(mj.data))
     return mj, mt
 

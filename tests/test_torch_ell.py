@@ -111,7 +111,8 @@ def test_ell_unstructured_pattern_matches_jax():
     ej = jell.to_ell(jbsr.BSRMatrix(structure=sj, data=jnp.asarray(data)),
                      jell.ell_structure(sj))
     et = tell.to_ell(tbsr.BSRMatrix(structure=stt,
-                                    data=torch.as_tensor(data)),
+                                    data=torch.as_tensor(data),
+                                    diag_pos=torch.as_tensor(stt.diag_pos)),
                      tell.ell_structure(stt))
     x = rng.standard_normal((n, 2))
     np.testing.assert_allclose(np_(et.matvec(torch.as_tensor(x))),

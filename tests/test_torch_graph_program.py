@@ -22,8 +22,8 @@ from torch_parity import RecordingLogger, build_sim
 @contextlib.contextmanager
 def no_host_reads():
     """Fail on what a CUDA graph capture cannot hold: a value read on the
-    host, a tensor made from host data, an index by a list or by a
-    boolean mask (a device-to-host count)."""
+    host, a tensor made from host data or written with a Python number,
+    an index by a list or by a boolean mask (a device-to-host count)."""
     def refuse(what):
         def fn(*a, **k):
             raise AssertionError(f"{what} inside a piece")
@@ -40,6 +40,11 @@ def no_host_reads():
     def checked(orig):
         def fn(self, idx, *value):
             check(idx)
+            if value and not isinstance(value[0], torch.Tensor):
+                # a CUDA tensor takes a Python number through a
+                # host-to-device copy
+                raise AssertionError("a Python number written into a "
+                                     "tensor inside a piece")
             return orig(self, idx, *value)
         return fn
 
@@ -71,8 +76,9 @@ def no_host_reads():
 
 
 def _copy_into(old, new, seen):
-    """Write new's tensors into old's: tensors, containers and the
-    tensors closed over by functions (a replayed graph's memory)."""
+    """Write new's tensors into old's: tensors, containers, the tensors
+    closed over by functions and those of a bound method's object (a
+    replayed graph's memory)."""
     if id(old) in seen or old is new:
         return
     seen.add(id(old))
@@ -81,6 +87,8 @@ def _copy_into(old, new, seen):
     elif isinstance(old, (tuple, list)):
         for a, b in zip(old, new):
             _copy_into(a, b, seen)
+    elif hasattr(old, "__self__") and hasattr(old, "__func__"):
+        _copy_into(old.__self__, new.__self__, seen)
     elif callable(old) and getattr(old, "__closure__", None):
         for a, b in zip(old.__closure__, new.__closure__):
             _copy_into(a.cell_contents, b.cell_contents, seen)
@@ -224,10 +232,18 @@ def test_graph_program_bdf2_two_step_sizes(monkeypatch):
 
 
 def test_step_program_mode_from_configuration():
-    """The CPU is always eager."""
+    """The CPU is always eager, whatever the method and the tracer step;
+    tests/test_torch_graph_krylov.py holds the gate's table on a CUDA
+    device by route, method and preconditioner."""
     from waiwera_tpu_torch.bench import newton_params
-    from waiwera_tpu_torch.sim.simulation import step_program_mode
+    from waiwera_tpu_torch.sim.simulation import (
+        step_program_mode,
+        tracer_program_mode,
+    )
 
     sim = build_sim(5, 4, 3, "cpu")
-    assert step_program_mode(sim.system, newton_params()) == "eager"
+    for method in ("bcgs", "gmres", "lgmres"):
+        params = newton_params()._replace(linear_method=method)
+        assert step_program_mode(sim.system, params) == "eager"
     assert sim.make_step_fn(newton_params()).program_mode == "eager"
+    assert tracer_program_mode(sim.system) == "eager"

@@ -95,8 +95,11 @@ def test_tracer_solve_matches_jax(pair, method, first):
 
 def test_tracer_solve_f32_basis(pair):
     """The f32 Arnoldi basis (taken above the byte cap, here asked for):
-    the same solution to the solve's tolerance."""
+    the same solution to the solve's tolerance, through the pieces the
+    tracer step runs (tracer.operator inside krylov.gmres_solve)."""
     from waiwera_tpu_torch.sim import tracer as tracer_mod
+    from waiwera_tpu_torch.solver import krylov
+    from waiwera_tpu_torch.solver.program import Program
 
     sj, st, _, (ft, fxt), hist, al = pair
     x_last = torch.as_tensor(hist[0])
@@ -105,12 +108,22 @@ def test_tracer_solve_f32_basis(pair):
     rate, _ = net.flows(ft, 0.0, 1.0e4)
     pidx = torch.as_tensor(st.tracers.phase_index)
     frac = ft.phase_flow_fractions()[net.arrays.cell][:, pidx]
+    al_new = tracer_mod.balance_coefs(st.tracers, ft, st.rock)
     args = (st.tracers, st.mesh_dev, ft, st.rock, fxt,
-            st.eos.num_primary_variables, 1.0, 1.0e4, al_last * x_last,
-            net.arrays, rate, frac, net.tracer_injection(0.0, 1.0e4),
-            st.tracer0)
-    r64 = tracer_mod.solve(*args, rtol=1e-10, basis_dtype=None)
-    r32 = tracer_mod.solve(*args, rtol=1e-10, basis_dtype=torch.float32)
+            st.eos.num_primary_variables, al_new, 1.0, 1.0e4,
+            al_last * x_last, net.arrays, rate, frac,
+            net.tracer_injection(0.0, 1.0e4), st.tracer0)
+
+    def solve(basis_dtype):
+        return krylov.gmres_solve(
+            Program(), lambda: tracer_mod.operator(*args), rtol=1e-10,
+            restart=tracer_mod.GMRES_RESTART,
+            max_restarts=krylov.max_restarts(tracer_mod.MAX_ITERATIONS,
+                                             tracer_mod.GMRES_RESTART),
+            basis_dtype=basis_dtype)
+
+    r64 = solve(None)
+    r32 = solve(torch.float32)
     assert r64.converged and r32.converged
     x = np_(r64.x)
     np.testing.assert_allclose(np_(r32.x), x, rtol=1e-7,

@@ -18,7 +18,8 @@ host clock around work that ends in torch.cuda.synchronize().
 Sections, in bench.py's order, each re-printing the whole JSON record:
 - stages: f64 residual, f32 Jacobian parts, the linear solve, the
   transition pass, the carried-state initial residual, one Newton body
-  (Newton with linear_max_iterations=1) and their sum against the step;
+  (Newton with linear_max_iterations=1) and their sum against the step,
+  the last three in the step's mode (graph programs on the card);
 - roofline: SpMV nnz/s from the slope between chains of matvec +
   normalise and of normalise alone (CUDA graphs timed with CUDA
   events), bytes
@@ -366,49 +367,53 @@ def spmv_roofline(sim) -> dict:
     return out
 
 
-def stage_breakdown(sim, linear_pc, step_seconds, iterations,
-                    linear_its) -> dict:
+def stage_breakdown(sim, linear_pc, step_seconds, iterations, linear_its,
+                    masked_its=0) -> dict:
     """Per-stage seconds at the initial state (bench.py:480-623), each
-    best of 3 and synchronised."""
+    best of 3 and synchronised, in the step's mode (the C20 repair):
+    where step_program_mode says "graph", the carried-state initial
+    residual, the linear solve (krylov.bicgstab_solve, the operator built
+    inside its first piece) and the capped Newton body run as pieces of
+    graph programs over the System's CUDA graphs, as the timed step does
+    (their eager times are kept under *_eager_seconds); elsewhere they
+    run eagerly. The f64 residual, the Jacobian parts and the transition
+    pass are timed eagerly, on their own.
+
+    The stage sum composes the step from the Krylov iterations it
+    executes, masked ones included (krylov.CHUNK per chunk):
+    r0 + its * body + max(E_step - its * E_body, 0) * t_lin / E_lin,
+    where body is the capped Newton iteration less r0, E_step the timed
+    step's linear + masked iterations (linear_its + masked_its), E_body
+    those of the capped body (one chunk) and E_lin those of the timed
+    linear solve."""
+    from waiwera_tpu_torch.sim.simulation import (
+        step_program_mode,
+        system_graphs,
+    )
     from waiwera_tpu_torch.solver import krylov
-    from waiwera_tpu_torch.solver.newton import newton_solve
-    from waiwera_tpu_torch.solver.system import MethodCoeffs
+    from waiwera_tpu_torch.solver.program import Program
+    from waiwera_tpu_torch.solver.system import method_coeffs, time_tensor
 
     device = sim.device
     system = sim.system
     eos = sim.eos
     dt = 1.0e5
     lhs0, fluid0, _ = sim.lhs_at(sim.y0, sim.region0)
-    coeffs = MethodCoeffs(c_lhs=1.0, dt_eff=dt, const=-lhs0)
+    coeffs = method_coeffs("beuler", dt, dt, 1.0, lhs0, lhs0)
+    t0, t1 = time_tensor(0.0, device), time_tensor(dt, device)
     y0, region0, rock = sim.y0, sim.region0, sim.rock
-    out = {}
+    mode = step_program_mode(system, newton_params(linear_pc))
+    out = {"stage_program": mode}
 
     def resid():
-        return system.residual(y0, region0, rock, coeffs, 0.0, dt)
+        return system.residual(y0, region0, rock, coeffs, t0, t1)
 
     def jac():
-        return system.jacobian_parts(y0, region0, rock, coeffs, 0.0, dt,
+        return system.jacobian_parts(y0, region0, rock, coeffs, t0, t1,
                                      tangent_dtype=torch.float32)
 
     out["residual_f64_seconds"] = timeit(resid, device)
     out["jacobian_parts_seconds"] = timeit(jac, device)
-    # eager PyTorch has no fusion across stages, so the solve is timed on
-    # its own from the residual and parts in hand: operator build + solve
-    r = resid()[0]
-    parts = jac()
-    its = []
-
-    def lin():
-        mv, pc = system.linear_operator_from_parts(parts, linear_pc,
-                                                   dtype=torch.float32)
-        res = krylov.solve("bcgs", mv, r.to(torch.float32), precond=pc,
-                           rtol=1e-5)
-        its.append(res.iterations)
-        return res
-
-    t_lin = timeit(lin, device)
-    out["linear_solve_seconds"] = t_lin
-    out["linear_solve_iterations_one"] = its[-1]
     temp0 = fluid0.temperature
 
     def trans():
@@ -419,22 +424,69 @@ def stage_breakdown(sim, linear_pc, step_seconds, iterations,
         return eos.scale(new, new_region)
 
     out["transition_seconds"] = timeit(trans, device)
+    r32 = resid()[0].to(torch.float32)
+    parts = jac()
     fx0 = sim.initial_fluxes(y0, region0)
-    t_r0 = timeit(lambda: system.residual_from_state(
-        fluid0, lhs0, fx0, coeffs, 0.0, dt), device)
-    out["initial_residual_seconds"] = t_r0
     # Newton with the Krylov loop capped at 1 iteration fails after ONE
     # Newton iteration: t = initial residual + one whole body
     cap = newton_params(linear_pc, linear_max_iterations=1)._replace(
         max_iterations=2, min_iterations=2)
-    t_cap1 = timeit(lambda: newton_solve(
-        system, y0, region0, temp0, rock, coeffs, 0.0, dt, lhs_scale=lhs0,
-        params=cap, initial=(fluid0, lhs0, fx0)), device)
+
+    def operator(p, r):
+        mv, pc = system.linear_operator_from_parts(p, linear_pc,
+                                                   dtype=torch.float32)
+        return mv, pc, r
+
+    def stages(graph):
+        """(t_r0, t_lin, E_lin, its_lin, t_cap, E_body) through graph
+        programs (graph) or eagerly."""
+        def program():
+            return Program(system_graphs(system)) if graph else Program()
+
+        prog = program()
+        r0_in = prog.stage("r0", (fluid0, lhs0, fx0, coeffs, t0, t1))
+        t_r0 = timeit(lambda: prog.run("r0", system.residual_from_state,
+                                       *r0_in), device)
+        prog = program()
+        lin_in = prog.stage("lin", (parts, r32))
+        lin = []
+
+        def solve():
+            lin.append(krylov.bicgstab_solve(prog, operator, *lin_in,
+                                             rtol=1e-5, name="lin"))
+
+        t_lin = timeit(solve, device)
+        step = sim.make_step_fn(cap, "beuler", eager=not graph)
+        capped = []
+
+        def body():
+            capped.append(step(y0, region0, temp0, lhs0, lhs0, 0.0, dt, dt,
+                               1.0, fluid_last=fluid0, fluxes_last=fx0)[0])
+
+        t_cap = timeit(body, device)
+        return (t_r0, t_lin,
+                lin[-1].iterations + lin[-1].masked_iterations,
+                lin[-1].iterations, t_cap,
+                capped[-1].linear_iterations + capped[-1].masked_iterations)
+
+    t_r0, t_lin, e_lin, its_lin, t_cap1, e_body = stages(mode == "graph")
+    if mode == "graph":
+        eager = stages(False)
+        out["initial_residual_eager_seconds"] = eager[0]
+        out["linear_solve_eager_seconds"] = eager[1]
+        out["newton_body_eager_seconds"] = max(eager[4] - eager[0], 0.0)
+    out["initial_residual_seconds"] = t_r0
+    out["linear_solve_seconds"] = t_lin
+    out["linear_solve_iterations_one"] = its_lin
+    out["linear_solve_executed_iterations_one"] = e_lin
     body = max(t_cap1 - t_r0, 0.0)
     out["newton_body_seconds"] = body
+    out["newton_body_executed_iterations"] = e_body
     n_it = max(iterations, 1)
-    lin_per_it = t_lin / max(its[-1], 1)
-    stage_sum = t_r0 + n_it * body + max(linear_its - n_it, 0) * lin_per_it
+    e_step = linear_its + masked_its
+    lin_per_it = t_lin / max(e_lin, 1)
+    stage_sum = t_r0 + n_it * body + max(e_step - n_it * e_body, 0) \
+        * lin_per_it
     out["stage_sum_seconds"] = stage_sum
     out["stage_vs_step"] = stage_sum / step_seconds
     return out
@@ -459,8 +511,10 @@ def ell_rate(sim_r, device) -> dict:
         rng.standard_normal((nnzb, npv, npv)).astype(np.float32),
         device=device,
     )
-    m = ops_ell.to_ell(bsr_mod.BSRMatrix(structure=st, data=data), es,
-                       torch.float32)
+    mat = bsr_mod.BSRMatrix(
+        structure=st, data=data,
+        diag_pos=torch.as_tensor(st.diag_pos, device=device))
+    m = ops_ell.to_ell(mat, es, torch.float32)
     bufs = [torch.ones((n_e, npv), dtype=torch.float32, device=device)]
 
     def ell_step(i):
@@ -625,7 +679,8 @@ class Bench:
             step_seconds, its, lin_its = time_step(sim, make_step(sim,
                                                                   linear_pc))
             state.update(sim=sim, step_seconds=step_seconds, its=its,
-                         lin_its=lin_its)
+                         lin_its=lin_its, masked=time_step.last_info[
+                             "masked_krylov_iterations"])
             return {
                 "metric": "implicit_timestep_dof_per_s",
                 "value": n * npv / step_seconds,
@@ -650,7 +705,7 @@ class Bench:
         sim = state["sim"]
         self.section("stage", lambda: stage_breakdown(
             sim, linear_pc, state["step_seconds"], state["its"],
-            state["lin_its"]), reserve=180.0)
+            state["lin_its"], state["masked"]), reserve=180.0)
         self.section("spmv", lambda: spmv_roofline(sim), reserve=150.0)
         del state["sim"], sim
 

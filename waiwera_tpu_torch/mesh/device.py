@@ -11,13 +11,13 @@ the flux output (fluxes_to_host_order).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from waiwera_tpu_torch.mesh.core import Mesh
-from waiwera_tpu_torch.ops.segment import SegmentSum
+from waiwera_tpu_torch.ops.segment import RowGather, SegmentSum
 
 
 class MeshArrays(NamedTuple):
@@ -38,6 +38,8 @@ class MeshArrays(NamedTuple):
     # per-face values into cells: the left cells' entries [F] then the
     # right cells' [F], in a fixed order (ops/segment.py)
     face_sum: Optional[SegmentSum] = None
+    # x[face_cells[:, 0]] and x[face_cells[:, 1]] (ops/segment.py)
+    face_rows: Optional[Tuple[RowGather, RowGather]] = None
 
     def to(self, dtype: torch.dtype) -> "MeshArrays":
         """The same mesh with its floating geometry cast to dtype."""
@@ -65,8 +67,9 @@ def mesh_arrays(mesh: Mesh, device="cpu") -> MeshArrays:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
                                device=device)
 
+    face_cells = torch.as_tensor(fc[perm], device=device)
     return MeshArrays(
-        face_cells=torch.as_tensor(fc[perm], device=device),
+        face_cells=face_cells,
         face_area=f64(np.asarray(mesh.face_area)[perm]),
         face_distance=f64(dist[perm]),
         face_distance12=f64(np.asarray(mesh.face_distance12)[perm]),
@@ -84,7 +87,13 @@ def mesh_arrays(mesh: Mesh, device="cpu") -> MeshArrays:
         face_sign=np.where(flip, -1.0, 1.0)[perm],
         face_sum=SegmentSum(np.concatenate([fc[perm, 0], fc[perm, 1]]),
                             mesh.num_cells, device),
+        face_rows=face_rows(face_cells),
     )
+
+
+def face_rows(face_cells: torch.Tensor) -> Tuple[RowGather, RowGather]:
+    """The gathers of the faces' left and right cells."""
+    return RowGather(face_cells[:, 0]), RowGather(face_cells[:, 1])
 
 
 def fluxes_to_host_order(mesh: MeshArrays, fluxes) -> np.ndarray:

@@ -20,21 +20,25 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from waiwera_tpu_torch.ops.segment import RowGather
+
 
 class ELLStructure(NamedTuple):
     indices: torch.Tensor  # [N, K] int64 block column per slot (pad: own row)
     gather_pos: torch.Tensor  # [N, K] int64 into BSR data padded by one
     # trailing zero block (pad slots point at position nnzb)
     block_size: int
+    rows: RowGather  # x[indices] (ops/segment.py), built once
 
 
 class ELLMatrix(NamedTuple):
     indices: torch.Tensor  # [N, K]
     data: torch.Tensor  # [N, K, b, b] (pad slots zero)
+    rows: RowGather  # x[indices] (ops/segment.py)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x with x, y [N, b]."""
-        xg = x[self.indices]  # [N, K, b]
+        xg = self.rows(x)  # [N, K, b]
         return torch.einsum("nkij,nkj->ni", self.data,
                             xg.to(self.data.dtype))
 
@@ -54,10 +58,12 @@ def ell_structure(structure, device="cpu") -> ELLStructure:
     slot = np.arange(nnzb) - indptr[rows]  # position within each row
     indices[rows, slot] = cols
     gather_pos[rows, slot] = np.arange(nnzb)
+    indices = torch.as_tensor(indices, device=device)
     return ELLStructure(
-        indices=torch.as_tensor(indices, device=device),
+        indices=indices,
         gather_pos=torch.as_tensor(gather_pos, device=device),
         block_size=structure.block_size,
+        rows=RowGather(indices),
     )
 
 
@@ -69,4 +75,4 @@ def to_ell(mat, ell: ELLStructure, dtype=None) -> ELLMatrix:
     d = data[ell.gather_pos]  # [N, K, b, b]
     if dtype is not None:
         d = d.to(dtype)
-    return ELLMatrix(indices=ell.indices, data=d)
+    return ELLMatrix(indices=ell.indices, data=d, rows=ell.rows)

@@ -15,9 +15,54 @@ adds only).
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
+
+
+def _vector_rows(width: int, itemsize: int) -> bool:
+    """Whether rows of `width` elements of `itemsize` bytes are what
+    PyTorch's CUDA row gather (index, index_select and gather along dim
+    0) copies with its vectorised kernel: one row per thread block, 16
+    bytes per row at the port's widths, ~30 x below the card's bandwidth
+    on an H100 (PERF.md §6). Such rows are gathered element by element
+    instead."""
+    return width > 1 and (width * itemsize) % 16 == 0
+
+
+class RowGather:
+    """x[index] along dim 0 for a static int64 index (a mesh's face
+    cells, an ELL table, the columns of a BSR matrix's lower blocks).
+    Rows whose bytes PyTorch would gather with its vectorised row kernel
+    (_vector_rows) are gathered element by element from the flat tensor,
+    at element positions built once per row width (at a piece's warm-up,
+    before any capture); the result is x[index], bit for bit."""
+
+    def __init__(self, index: torch.Tensor):
+        self.index = index
+        self._positions = {}
+
+    def to(self, device) -> "RowGather":
+        return RowGather(self.index.to(device))
+
+    def positions(self, width: int) -> torch.Tensor:
+        """[*index.shape, width] element positions of the rows."""
+        pos = self._positions.get(width)
+        if pos is None:
+            pos = self._positions[width] = (
+                self.index.unsqueeze(-1) * width
+                + torch.arange(width, device=self.index.device))
+        return pos
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        width = math.prod(x.shape[1:])
+        if not _vector_rows(width, x.element_size()):
+            if self.index.dim() == 1:
+                return x.index_select(0, self.index)
+            return x[self.index]
+        return x.reshape(-1)[self.positions(width)].reshape(
+            self.index.shape + x.shape[1:])
 
 
 class SegmentSum:
@@ -36,7 +81,8 @@ class SegmentSum:
         # entry index per (slot, row); empty slots point at a zero pad
         table = np.full((depth, num_rows), self.size, np.int64)
         table[slot, index[order]] = order
-        self.slots = [torch.as_tensor(t, device=device) for t in table]
+        self.slots = [RowGather(torch.as_tensor(t, device=device))
+                      for t in table]
 
     def to(self, device) -> "SegmentSum":
         """The same sum with its tables on `device`."""
@@ -57,5 +103,6 @@ class SegmentSum:
         pad[dim] = 1
         v = torch.cat([values, values.new_zeros(pad)], dim)
         for slot in self.slots:
-            out = out + v.index_select(dim, slot)
+            out = out + (slot(v) if dim == 0
+                         else v.index_select(dim, slot.index))
         return out

@@ -39,7 +39,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from waiwera_tpu_torch.mesh.device import MeshArrays
+from waiwera_tpu_torch.mesh.device import MeshArrays, face_rows
 from waiwera_tpu_torch.ops import dia, ell
 from waiwera_tpu_torch.ops.segment import SegmentSum
 from waiwera_tpu_torch.parallel.comm import Comm, HaloRoutes
@@ -338,8 +338,9 @@ class DistributedSystem:
             return torch.as_tensor(np.ascontiguousarray(a),
                                    dtype=torch.float64, device=device)
 
+        face_cells = torch.as_tensor(fc, device=device)
         self.mesh_local = MeshArrays(
-            face_cells=torch.as_tensor(fc, device=device),
+            face_cells=face_cells,
             face_area=f64(area),
             face_distance=f64(dist),
             face_distance12=f64(dist12),
@@ -351,6 +352,7 @@ class DistributedSystem:
             num_interior_cells=n_local,
             face_sum=SegmentSum(np.concatenate([fc[:, 0], fc[:, 1]]),
                                 n_local, device),
+            face_rows=face_rows(face_cells),
         )
 
         # -- the SpMV route, decided alike on every rank from the plan's

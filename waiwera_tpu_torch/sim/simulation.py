@@ -47,7 +47,11 @@ from waiwera_tpu_torch.physics.state import (
     RockState,
 )
 from waiwera_tpu_torch.sim.network import SourceNetwork
-from waiwera_tpu_torch.solver.newton import NewtonParams, newton_solve
+from waiwera_tpu_torch.solver.newton import (
+    NewtonParams,
+    newton_solve,
+    program_covers,
+)
 from waiwera_tpu_torch.solver.system import (
     System,
     method_coeffs,
@@ -520,14 +524,17 @@ class Simulation:
 
         tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
         t0, t1, dt, dt_last, first, use_bdf2) -> tracer.TracerResult;
-        times are Python numbers. The tracer solve sees the static rock,
-        as in the JAX package."""
+        times are Python numbers or 0-d tensors. The tracer solve sees
+        the static rock, as in the JAX package. On the card it runs as
+        replayed CUDA graphs (tracer_program_mode) unless this
+        simulation's _eager_step is set."""
         network = self.sources
         if network is not None and network.num_sources == 0:
             network = None
         return tracer_step_function(
             self.tracers, self.mesh_dev, self.rock, network,
-            self.eos.num_primary_variables, self.tracer0)
+            self.eos.num_primary_variables, self.tracer0,
+            system=self.system, eager=self._eager_step)
 
     def initial_tracer_state(self):
         """(x0, al0): the initial tracers and their balance coefficients
@@ -567,23 +574,42 @@ class Simulation:
         return {"total": dof, "min": dof, "max": dof, "imbalance": 0.0}
 
 
-# preconditioners whose set-up and application a graph covers (the band
-# and hybrid routes); the rest, and every other linear method, run eagerly
-GRAPH_PCS = ("none", "jacobi", "bjacobi", "asm", "ilu", "dilu", "sgs")
-
-
 def step_program_mode(system: System, newton_params: NewtonParams) -> str:
     """"graph" where a try runs as replayed CUDA graphs, else "eager",
-    from the configuration alone: a CUDA device, a one-rank System, the
-    band or hybrid route, BiCGStab and a preconditioner of GRAPH_PCS."""
-    covered = (
-        system.mesh.is_ghost.device.type == "cuda"
-        and not system.distributed
-        and system.bands is not None
-        and newton_params.linear_method == "bcgs"
-        and newton_params.linear_pc in GRAPH_PCS
-    )
+    from the configuration alone: a CUDA device, a one-rank System, any
+    route (band, hybrid or ELL), a linear method of
+    newton.GRAPH_METHODS (bcgs, gmres, lgmres) and a preconditioner of
+    newton.GRAPH_PCS (none, jacobi, bjacobi, asm, ilu, dilu, sgs), or on
+    the ELL route line or cpr, which it replaces by block-Jacobi
+    (newton.program_covers). bcgsl, lu and ranks stay eager."""
+    covered = (system.mesh.is_ghost.device.type == "cuda"
+               and program_covers(system, newton_params))
     return "graph" if covered else "eager"
+
+
+def tracer_program_mode(system: System) -> str:
+    """"graph" where the tracer step runs as replayed CUDA graphs (a CUDA
+    device and a one-rank System), else "eager"."""
+    covered = (system.mesh.is_ghost.device.type == "cuda"
+               and not system.distributed)
+    return "graph" if covered else "eager"
+
+
+def system_graphs(system: System):
+    """The System's CUDA graph backend: one memory pool per System, which
+    its step and tracer programs share."""
+    from waiwera_tpu_torch.solver.program import CudaGraphs
+
+    graphs = system.__dict__.get("_graphs")
+    if graphs is None:
+        graphs = system._graphs = CudaGraphs(system.mesh.is_ghost.device)
+    return graphs
+
+
+def _program_stats(prog) -> dict:
+    return {"graph_captures": prog.captures,
+            "graph_capture_seconds": prog.capture_seconds,
+            "graph_replays": prog.replays}
 
 
 def step_function(system: System, rock: RockState,
@@ -598,7 +624,7 @@ def step_function(system: System, rock: RockState,
     in one memory pool per System. `step.program_mode` says which; `step.stats()`
     counts its captures, their seconds and its replays."""
     from waiwera_tpu_torch.solver import krylov
-    from waiwera_tpu_torch.solver.program import CudaGraphs, Program
+    from waiwera_tpu_torch.solver.program import Program
 
     device = system.mesh.is_ghost.device
     mode = "eager" if eager else step_program_mode(system, newton_params)
@@ -612,16 +638,8 @@ def step_function(system: System, rock: RockState,
         key = (newton_params, method, variant, krylov.CHUNK)
         prog = programs.get(key)
         if prog is None:
-            graphs = system.__dict__.get("_graphs")  # one pool per System
-            if graphs is None:
-                graphs = system._graphs = CudaGraphs(device)
-            prog = programs[key] = Program(graphs)
+            prog = programs[key] = Program(system_graphs(system))
         return prog
-
-    def counts(prog):
-        return {"graph_captures": prog.captures,
-                "graph_capture_seconds": prog.capture_seconds,
-                "graph_replays": prog.replays}
 
     def step(y, region, temperature, lhs_last, lhs_last2, t_last, dt,
              dt_last, first, rock_in=None, fluid_last=None,
@@ -637,7 +655,7 @@ def step_function(system: System, rock: RockState,
         coeffs = method_coeffs(method, dt, dt_last, first, lhs_last,
                                lhs_last2)
         prog = program_for((rock_in is None, initial is None))
-        before = counts(prog)
+        before = _program_stats(prog)
         y, region, temperature, rock_t, lhs_last, coeffs, t0, t1, initial = \
             prog.stage("try", (
                 y, region, temperature, rock if rock_in is None else rock_in,
@@ -651,7 +669,7 @@ def step_function(system: System, rock: RockState,
             )
         finally:
             prog.timing = None
-        for k, v in counts(prog).items():
+        for k, v in _program_stats(prog).items():
             totals[k] += v - before[k]
         fluid, lhs_new, fluxes = res.fluid, res.lhs, res.fluxes
         res = res._replace(fluid=None, lhs=None, fluxes=None)
@@ -669,37 +687,115 @@ def step_function(system: System, rock: RockState,
 
 
 def tracer_step_function(tracers, mesh, rock, network, npv: int,
-                         ghost_value, **hooks):
+                         ghost_value, system: Optional[System] = None,
+                         eager: bool = False, **hooks):
     """The tracer step of Simulation.make_tracer_step_fn over `mesh`
     (a simulation's, or a rank's local mesh) with `network` (or None)
     and Dirichlet values ghost_value; hooks (owned, sync, reduce_sum)
-    go to tracer.solve."""
+    go to tracer.operator and the GMRES solve.
+
+    tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2, t0,
+    t1, dt, dt_last, first, use_bdf2) -> tracer.TracerResult. The times
+    and `first` may be Python numbers or 0-d tensors: they reach the
+    pieces as 0-d f64 tensors staged by the program, the backward-Euler
+    or BDF2 coefficients are chosen by torch.where on `first`, and
+    use_bdf2 is a constant of the run. The balance coefficients at the
+    new fluid state are the first piece; the network's flows, the
+    operator and the GMRES start the solve's first piece, each restart
+    cycle a piece (krylov.gmres_solve); the ranks' halo exchange of the
+    solution the last. On the card, with `system` given
+    (a one-rank System, tracer_program_mode) and eager false, the pieces
+    are captured as CUDA graphs at the first step and replayed, in the
+    System's graph pool, one program per use_bdf2; `tracer_step.
+    program_mode` says which, `tracer_step.stats()` counts captures,
+    their seconds and replays, and `tracer_step.timing` (a list, or
+    None) collects each piece's CUDA events (Program.timing)."""
     from waiwera_tpu_torch.sim import tracer as tracer_mod
+    from waiwera_tpu_torch.solver import krylov
+    from waiwera_tpu_torch.solver.program import Program
 
-    pidx = torch.as_tensor(tracers.phase_index, device=ghost_value.device)
+    device = ghost_value.device
+    pidx = torch.as_tensor(tracers.phase_index, device=device)
+    mode = ("eager" if eager or system is None
+            else tracer_program_mode(system))
+    programs = ({} if system is None
+                else system.__dict__.setdefault("_tracer_programs", {}))
+    totals = {"graph_captures": 0, "graph_capture_seconds": 0.0,
+              "graph_replays": 0}
+    basis_dtype = tracer_mod.gmres_basis_dtype(ghost_value.numel(),
+                                               ghost_value.element_size())
+    sync = hooks.get("sync")
+    solve_kw = {k: hooks[k] for k in ("reduce_sum",) if k in hooks}
+    op_kw = {k: hooks[k] for k in ("owned", "sync") if k in hooks}
 
-    def tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
-                    t0, t1, dt, dt_last, first, use_bdf2):
+    def program_for(use_bdf2):
+        if mode == "eager":
+            return Program()
+        prog = programs.get(use_bdf2)
+        if prog is None:
+            prog = programs[use_bdf2] = Program(system_graphs(system))
+        return prog
+
+    def balance(fluid):
+        return tracer_mod.balance_coefs(tracers, fluid, rock)
+
+    def setup(fluid, fluxes, x_last, al_last, x_last2, al_last2, t0, t1,
+              dt, dt_last, first, al, use_bdf2):
         rate = arrays = frac = inj = None
         if network is not None:
             rate, _ = network.flows(fluid, t0, t1)
             arrays = network.arrays
             frac = fluid.phase_flow_fractions()[arrays.cell][:, pidx]
             inj = network.tracer_injection(t0, t1, like=rate)
-        dt = float(dt)
-        r = dt / float(dt_last)
-        if (not use_bdf2) or float(first) > 0.5:
-            c_al, dt_eff = 1.0, dt
-            b_hist = al_last * x_last
-        else:
-            c_al, dt_eff = 1.0 + 2.0 * r, dt * (r + 1.0)
-            b_hist = ((r + 1.0) ** 2 * al_last * x_last
-                      - r * r * al_last2 * x_last2)
-        return tracer_mod.solve(
-            tracers, mesh, fluid, rock, fluxes, npv, c_al, dt_eff, b_hist,
-            arrays, rate, frac, inj, ghost_value, **hooks,
-        )
+        c_al, dt_eff, b_hist = torch.ones_like(dt), dt, al_last * x_last
+        if use_bdf2:
+            r = dt / dt_last
+            be = first > 0.5
+            c_al = torch.where(be, c_al, 1.0 + 2.0 * r)
+            dt_eff = torch.where(be, dt, dt * (r + 1.0))
+            b_hist = torch.where(be, b_hist,
+                                 (r + 1.0) ** 2 * al_last * x_last
+                                 - r * r * al_last2 * x_last2)
+        return tracer_mod.operator(
+            tracers, mesh, fluid, rock, fluxes, npv, al, c_al, dt_eff,
+            b_hist, arrays, rate, frac, inj, ghost_value, **op_kw)
 
+    def tracer_step(fluid, fluxes, x_last, al_last, x_last2, al_last2,
+                    t0, t1, dt, dt_last, first, use_bdf2):
+        prog = program_for(bool(use_bdf2))
+        before = _program_stats(prog)
+        times = tuple(time_tensor(v, device)
+                      for v in (t0, t1, dt, dt_last, first))
+        args = prog.stage("tracer", (fluid, fluxes, x_last, al_last,
+                                     x_last2, al_last2) + times)
+        prog.timing = tracer_step.timing
+        try:
+            al = prog.run("tracer.balance", balance, args[0])
+            res = krylov.gmres_solve(
+                prog, setup, *args, al, bool(use_bdf2), rtol=tracer_mod.RTOL,
+                max_restarts=krylov.max_restarts(
+                    tracer_mod.MAX_ITERATIONS, tracer_mod.GMRES_RESTART),
+                restart=tracer_mod.GMRES_RESTART, basis_dtype=basis_dtype,
+                name="tracer.gmres", **solve_kw)
+            x = res.x if sync is None else prog.run("tracer.sync", sync,
+                                                    res.x)
+            x, al = prog.hand_out((x, al))
+        finally:
+            prog.timing = None
+        for k, v in _program_stats(prog).items():
+            totals[k] += v - before[k]
+        return tracer_mod.TracerResult(
+            x=x, al=al, converged=res.converged, iterations=res.iterations,
+            host_syncs=res.host_syncs, matvecs=res.matvecs)
+
+    def stats() -> dict:
+        """This tracer step's graph captures, their seconds and its
+        replays so far."""
+        return dict(totals)
+
+    tracer_step.program_mode = mode
+    tracer_step.stats = stats
+    tracer_step.timing = None  # a list: the pieces' CUDA events
     return tracer_step
 
 

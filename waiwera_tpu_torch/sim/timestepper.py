@@ -283,7 +283,10 @@ class Timestepper:
         "eager", chosen from the configuration before the first try
         (sim/simulation.py step_program_mode); the run's graph captures,
         their seconds and replays, the BiCGStab iterations run masked
-        and the step's host syncs per try."""
+        and the step's host syncs per try; the tracer step's program
+        ("graph" or "eager", sim/simulation.py tracer_program_mode) and
+        its graph captures, their seconds and replays (`tracer_graph_*`).
+        """
         return {"tries": 0, "newton_iterations": 0, "linear_iterations": 0,
                 "matvecs": 0, "masked_krylov_iterations": 0,
                 "step_program": "eager", "graph_captures": 0,
@@ -292,7 +295,10 @@ class Timestepper:
                 "host_syncs_timestepper": 0, "output_seconds": 0.0,
                 "step_seconds": [], "tracer_iterations": [],
                 "tracer_converged": [], "host_syncs_tracer": 0,
-                "tracer_seconds": 0.0}
+                "tracer_seconds": 0.0, "tracer_program": "eager",
+                "tracer_graph_captures": 0,
+                "tracer_graph_capture_seconds": 0.0,
+                "tracer_graph_replays": 0}
 
     # ------------------------------------------------------------------
 
@@ -336,6 +342,10 @@ class Timestepper:
                                             "eager")
         step_stats = getattr(self.step_fn, "stats", dict)
         graphs0 = step_stats()
+        tracer_stats = getattr(self.tracer_step_fn, "stats", dict)
+        tracer0 = tracer_stats()
+        stats_run["tracer_program"] = getattr(self.tracer_step_fn,
+                                              "program_mode", "eager")
         stats_run["host_syncs_timestepper"] += 1
         if bool(self._reduce_any(torch.any(err & ~sim.mesh_dev.is_ghost))):
             raise RuntimeError(
@@ -650,6 +660,8 @@ class Timestepper:
             self._dump_jacobian(y, region, lhs, t, dt_last)
         for k, v in step_stats().items():
             stats_run[k] = v - graphs0[k]
+        for k, v in tracer_stats().items():
+            stats_run["tracer_" + k] = v - tracer0[k]
         stats_run["host_syncs_per_try"] = (
             stats_run["host_syncs_step"] / max(stats_run["tries"], 1))
         log.write(

@@ -39,7 +39,10 @@ import torch
 # values; above this many bytes in the solve dtype the basis is stored in
 # f32 (H and the updates stay in the solve dtype)
 GMRES_BASIS_BYTES_CAP = 2**28
-_GMRES_RESTART = 30
+GMRES_RESTART = 30
+# the auxiliary KSP's tolerance and iteration cap
+RTOL = 1e-5
+MAX_ITERATIONS = 1000
 
 GAS_CONSTANT = 8.3144598  # J/mol/K (thermodynamics.F90:37-41)
 TC_K = 273.15
@@ -48,7 +51,7 @@ TC_K = 273.15
 def gmres_basis_dtype(num_dofs: int, itemsize: int):
     """torch.float32 when the full-precision Arnoldi basis would exceed
     the byte cap, else None (the solve dtype)."""
-    if num_dofs * (_GMRES_RESTART + 1) * itemsize > GMRES_BASIS_BYTES_CAP:
+    if num_dofs * (GMRES_RESTART + 1) * itemsize > GMRES_BASIS_BYTES_CAP:
         return torch.float32
     return None
 
@@ -121,31 +124,33 @@ def balance_coefs(tracers: TracerSet, fluid, rock) -> torch.Tensor:
         * fluid.density[:, p]
 
 
-def solve(
+def operator(
     tracers: TracerSet,
     mesh,
     fluid,
     rock,
     fluxes: torch.Tensor,
     npv: int,
-    c_al: float,
-    dt_eff: float,
+    al: torch.Tensor,
+    c_al,
+    dt_eff,
     b_hist: torch.Tensor,
     sources,
     source_rate: Optional[torch.Tensor],
     source_frac: Optional[torch.Tensor],
     tracer_injection: Optional[torch.Tensor],
     ghost_value: torch.Tensor,
-    rtol: float = 1e-5,
-    max_iterations: int = 1000,
-    basis_dtype="auto",
     owned: Optional[torch.Tensor] = None,
     sync=None,
-    reduce_sum=None,
-) -> TracerResult:
-    """One auxiliary solve.
+):
+    """(a_matvec, precond, b) of one auxiliary solve: the matrix-free
+    operator c_al Al - dt_eff Ar, Jacobi on its exact diagonal, and the
+    right-hand side. c_al and dt_eff are numbers or 0-d tensors; nothing
+    is read on the host, so a graph can hold it (the first piece of the
+    tracer step's GMRES solve).
 
     mesh: MeshArrays (canonical face order, that of `fluxes`).
+    al: balance_coefs at `fluid`, [N, nt].
     b_hist: the history part of b ([N, nt], method-dependent, computed by
     the caller from the last steps' balance coefficients and tracers).
     sources: the network's SourceArrays (cells and their scatter-sum), or
@@ -153,20 +158,13 @@ def solve(
     source_frac: [ns, nt] tracer-phase flow fractions at source cells.
     tracer_injection: [ns, nt] injection rates.
     ghost_value: [N, nt] Dirichlet values of the ghost rows.
-    basis_dtype: the GMRES basis dtype; "auto" follows
-    gmres_basis_dtype.
 
     Distributed hooks (parallel/spmd.py): owned [N] masks the rows to
-    the owning rank (halo rows stay zero through the Krylov iteration),
-    sync is the halo exchange applied inside the matvec before the face
-    gathers and to the solution, and reduce_sum combines the dot
-    products across ranks. On one device all three are left out."""
-    from waiwera_tpu_torch.solver import krylov
-
+    the owning rank (halo rows stay zero through the Krylov iteration)
+    and sync is the halo exchange applied inside the matvec before the
+    face gathers. On one device both are left out."""
     n = mesh.num_cells
     nt = tracers.num_tracers
-    cl = mesh.face_cells[:, 0]
-    cr = mesh.face_cells[:, 1]
     area = mesh.face_area
     d12 = torch.where(mesh.face_distance12 > 0.0, mesh.face_distance12, 1.0)
     vol = torch.where(mesh.cell_volume > 0.0, mesh.cell_volume, 1.0)
@@ -177,7 +175,6 @@ def solve(
                                  torch.cat([va, vb]))
 
     pidx, _, _, diffusion = tracers._on(fluid.pressure)
-    al = balance_coefs(tracers, fluid, rock)
     # per-face tracer-phase mass flux [F, nt]; upstream side by its sign
     pf = fluxes[:, npv:][:, pidx]
     up_is_l = pf >= 0.0
@@ -185,8 +182,9 @@ def solve(
     # diffusion: harmonic phi rho tau (tau = S), times D / d12 * area
     dfac_cell = rock.porosity[:, None] * fluid.density[:, pidx] \
         * fluid.saturation[:, pidx]
-    f1 = dfac_cell[cl]
-    f2 = dfac_cell[cr]
+    gather_l, gather_r = mesh.face_rows
+    f1 = gather_l(dfac_cell)
+    f2 = gather_r(dfac_cell)
     wsum = f1 + f2
     big = torch.abs(wsum) > 1e-30
     dfac = torch.where(big, 2.0 * f1 * f2 / torch.where(big, wsum, 1.0), 0.0)
@@ -213,12 +211,12 @@ def solve(
     identity_row = (~present) | is_ghost[:, None]
     fixed = torch.where(is_ghost[:, None], ghost_value, 0.0)
 
-    vol_l = vol[cl][:, None]
-    vol_r = vol[cr][:, None]
+    vol_l = gather_l(vol)[:, None]
+    vol_r = gather_r(vol)[:, None]
 
     def ar_matvec(x):
-        xl = x[cl]
-        xr = x[cr]
+        xl = gather_l(x)
+        xr = gather_r(x)
         xu = torch.where(up_is_l, xl, xr)  # [F, nt] upstream value
         # advection (flow_simulation.F90:1664-1676) and diffusion
         # (:1677-1685) in one two-sided face scatter
@@ -246,13 +244,7 @@ def solve(
     diag = torch.where(identity_row, 1.0, c_al * al - dt_eff * diag_ar)
     inv_diag = torch.where(torch.abs(diag) > 1e-300, 1.0 / diag, 1.0)
 
-    if basis_dtype == "auto":
-        basis_dtype = gmres_basis_dtype(b.numel(), b.element_size())
-    kw = {} if reduce_sum is None else {"reduce_sum": reduce_sum}
-    res = krylov.solve("gmres", a_matvec, b, precond=lambda v: v * inv_diag,
-                       rtol=rtol, max_iterations=max_iterations,
-                       basis_dtype=basis_dtype, **kw)
-    x = res.x if sync is None else sync(res.x)
-    return TracerResult(x=x, al=al, converged=res.converged,
-                        iterations=res.iterations,
-                        host_syncs=res.host_syncs, matvecs=res.matvecs)
+    def precond(v):
+        return v * inv_diag
+
+    return a_matvec, precond, b

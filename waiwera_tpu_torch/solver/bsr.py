@@ -30,6 +30,7 @@ class BSRStructure(NamedTuple):
 class BSRMatrix(NamedTuple):
     structure: BSRStructure
     data: torch.Tensor  # [nnzb, b, b]
+    diag_pos: torch.Tensor  # [N] structure.diag_pos on the data's device
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x with x, y of shape [N, b]: each row's blocks summed
@@ -44,26 +45,41 @@ class BSRMatrix(NamedTuple):
 
     def diag_blocks(self) -> torch.Tensor:
         """[N, b, b] diagonal blocks."""
-        pos = torch.as_tensor(self.structure.diag_pos, device=self.data.device)
-        return self.data[pos]
+        return self.data[self.diag_pos]
 
 
-def assemble(structure: BSRStructure, diag: torch.Tensor,
-             face_lr: torch.Tensor, face_rl: torch.Tensor,
-             pos_lr: torch.Tensor, pos_rl: torch.Tensor) -> BSRMatrix:
-    """Matrix data from diagonal blocks [N, b, b] and per-face
-    off-diagonal blocks [F, b, b] accumulated at their positions
-    (face_block_positions, as tensors on the data's device)."""
-    nnzb = len(structure.indices)
-    b = structure.block_size
-    data = diag.new_zeros((nnzb, b, b))
-    data.index_add_(
-        0, torch.as_tensor(structure.diag_pos, device=diag.device), diag
+class Assembly(NamedTuple):
+    """Device tables of assemble, built once on the host."""
+
+    total: SegmentSum  # diagonal, (l, r) and (r, l) blocks -> positions
+    diag_pos: torch.Tensor  # [N]
+
+
+def assembly(structure: BSRStructure, face_cells: np.ndarray,
+             device="cpu") -> Assembly:
+    """The positions of the diagonal blocks and of every face's (l, r)
+    and (r, l) blocks (face_block_positions) as one fixed-order sum
+    (ops/segment.py, ROADMAP C15: two faces between one cell pair share
+    a position; where no position repeats the sum is one gather)."""
+    lr, rl = face_block_positions(structure, face_cells)
+    index = np.concatenate([structure.diag_pos, lr, rl])
+    return Assembly(
+        total=SegmentSum(index, len(structure.indices), device),
+        diag_pos=torch.as_tensor(structure.diag_pos, device=device),
     )
-    if face_lr is not None and face_lr.shape[0]:
-        data.index_add_(0, pos_lr, face_lr)
-        data.index_add_(0, pos_rl, face_rl)
-    return BSRMatrix(structure=structure, data=data)
+
+
+def assemble(structure: BSRStructure, tables: Assembly, diag: torch.Tensor,
+             face_lr: torch.Tensor, face_rl: torch.Tensor) -> BSRMatrix:
+    """Matrix data from diagonal blocks [N, b, b] and per-face
+    off-diagonal blocks [F, b, b] summed at their positions in a fixed
+    order, with nothing read from the host."""
+    b = structure.block_size
+    blocks = torch.cat([diag, face_lr, face_rl])
+    data = tables.total.add(
+        blocks.new_zeros((len(structure.indices), b, b)), blocks)
+    return BSRMatrix(structure=structure, data=data,
+                     diag_pos=tables.diag_pos)
 
 
 def build_structure(num_cells: int, face_cells: np.ndarray,

@@ -6,10 +6,14 @@ BiCGStab keeps its loop state on the device, as the JAX package's
 lax.while_loops do: the iterations run in chunks of CHUNK, each
 iteration's update masked by a device flag `active` (an iteration after
 convergence changes nothing), and the host reads (active, k) once per
-chunk and the round's flags once per round. Its pieces run through a
+chunk and the round's flags once per round. GMRES and LGMRES, as the
+JAX package's lax.fori_loop/while_loop, run each restart cycle as one
+piece (Arnoldi, the Hessenberg least squares by Givens rotations on the
+device, the update and the true residual), and the host reads the
+cycle test once per cycle. These pieces run through a
 solver.program.Program: eagerly, or replayed as CUDA graphs inside a
-Newton iteration. The other solvers' loops run in Python and copy a flag
-to the host at every convergence test. The syncs are counted in
+Newton iteration or a tracer step. BiCGStab(l) runs in Python and
+copies a flag to the host at every sweep. The syncs are counted in
 KrylovResult.host_syncs. Vectors are [N, b]; dot products reduce over
 everything. reduce_sum combines the partial reductions of a
 domain-decomposed vector across ranks (an all_reduce; the identity on
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from waiwera_tpu_torch.solver.program import Program, distinct
+from waiwera_tpu_torch.solver.smallblocks import hessenberg_lstsq_res
 
 DEFAULT_RTOL = 1e-5  # PETSc KSP default relative tolerance
 DEFAULT_ATOL = 1e-50
@@ -280,30 +285,198 @@ def _basis_combine(V: torch.Tensor, k: int, c: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _hessenberg_lstsq(H: np.ndarray, beta: float, m: int):
-    """(y, res): the least-squares solution of min ||beta e1 - H y|| for
-    the [m+1, m] Hessenberg H by Givens rotations, and the residual norm
-    after each column, res[j] = |g[j+1]| (the GMRES residual with j+1
-    Arnoldi vectors), in f64 on the host, as the JAX package's
-    smallblocks.hessenberg_lstsq_res does on the device."""
-    g = np.zeros(m + 1)
-    g[0] = beta
-    res = np.zeros(m)
-    R = np.array(H, np.float64)
-    for j in range(m):
-        a, b = R[j, j], R[j + 1, j]
-        r = np.sqrt(a * a + b * b)
-        big = r > 1e-300
-        c = a / r if big else 1.0
-        s = b / r if big else 0.0
-        R[j], R[j + 1] = c * R[j] + s * R[j + 1], -s * R[j] + c * R[j + 1]
-        g[j], g[j + 1] = c * g[j] + s * g[j + 1], -s * g[j] + c * g[j + 1]
-        res[j] = abs(g[j + 1])
-    y = np.zeros(m)
-    for j in range(m - 1, -1, -1):
-        rhs = g[j] - np.dot(R[j, j + 1:], y[j + 1:]) if j + 1 < m else g[j]
-        y[j] = rhs / R[j, j] if abs(R[j, j]) > 1e-300 else 0.0
-    return y, res
+class _ArnoldiOps(NamedTuple):
+    """What the cycles of one GMRES or LGMRES solve share."""
+
+    matvec: Callable
+    precond: Callable
+    b: torch.Tensor
+    tol: torch.Tensor  # 0-d
+
+
+class _ArnoldiState(NamedTuple):
+    """GMRES's and LGMRES's loop state between cycles, on the device."""
+
+    x: torch.Tensor
+    r: torch.Tensor  # b - A x, which starts the next cycle
+    rnorm: torch.Tensor  # 0-d
+    k: torch.Tensor  # 0-d int64, cycles
+    its: torch.Tensor  # 0-d int64, inner iterations
+    Z: torch.Tensor  # [max(augment, 1), n] LGMRES error directions,
+    # newest first
+    nz: torch.Tensor  # 0-d int64, valid rows of Z
+
+
+class _Arnoldi:
+    """The pieces of one right-preconditioned restarted GMRES(m) or
+    LGMRES solve, each a pure function of tensors with no host read; the
+    cycle test is that of the JAX package's cond.
+
+    Arnoldi with two-pass classical Gram-Schmidt (CGS2) against the
+    whole basis, as the JAX package does: a cycle takes all m Arnoldi
+    steps, solves the Hessenberg least squares on the device
+    (smallblocks.hessenberg_lstsq_res), updates x, counts the inner
+    iterations its residual profile needed and computes the true
+    residual of the new iterate, which starts the next cycle: m + 1
+    operator applications.
+
+    LGMRES (augment > 0; Baker, Jessup & Manteuffel 2005, PETSc's
+    KSPLGMRES): each cycle's subspace is m - augment Arnoldi directions
+    plus the augment latest approximate error vectors z_i = x_i -
+    x_{i-1} (normalised), kept as the JAX package keeps them, in a fixed
+    [augment, n] buffer Z with a count nz of its valid rows; until Z
+    fills, plain Arnoldi directions stand in, so the first cycle is
+    GMRES(m). x is updated from the directions applied (Q), GMRES's from
+    the preconditioned basis.
+
+    basis_dtype: the storage dtype of V (and Q), the dominant
+    workspace; with float32, H, the least squares and every update stay
+    in b.dtype: rows of V are cast to b.dtype a few at a time where they
+    meet a vector of b.dtype, the explicit form of the JAX package's
+    mixed-dtype promotion."""
+
+    def __init__(self, rtol, atol, restart, max_restarts, basis_dtype,
+                 reduce_sum, augment=None):
+        self.rtol = rtol
+        self.atol = atol
+        self.m = restart
+        self.max_restarts = max_restarts
+        self.basis_dtype = basis_dtype
+        self.reduce_sum = reduce_sum
+        self.lgmres = augment is not None
+        self.k_aug = max(int(augment), 0) if self.lgmres else 0
+        self.m_a = self.m - self.k_aug  # Arnoldi depth per cycle
+        if self.m_a < 1:
+            raise ValueError("lgmres restart must exceed augment")
+
+    def norm(self, a):
+        return torch.sqrt(self.reduce_sum(_dot(a, a)))
+
+    def flags(self, st: _ArnoldiState, tol) -> torch.Tensor:
+        """[go, its, converged] as int64: the host's one read per cycle."""
+        finite = torch.isfinite(st.rnorm)
+        go = (st.rnorm > tol) & (st.k < self.max_restarts) & finite
+        conv = (st.rnorm <= tol) & finite
+        return torch.stack([go.long(), st.its, conv.long()])
+
+    def start(self, setup, *args):
+        """setup(*args) -> (matvec, precond, b); then the residual at
+        x = 0 and the first cycle test."""
+        matvec, precond, b = setup(*args)
+        if precond is None:
+            precond = _identity
+        tol = torch.clamp_min(self.rtol * self.norm(b), self.atol)
+        ops = _ArnoldiOps(matvec, precond, b, tol)
+        x = torch.zeros_like(b)
+        r = b - matvec(x)
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
+        st = _ArnoldiState(
+            x=x, r=r, rnorm=self.norm(r), k=k, its=torch.zeros_like(k),
+            Z=b.new_zeros((max(self.k_aug, 1), b.numel())),
+            nz=torch.zeros_like(k))
+        return ops, distinct(st), self.flags(st, tol)
+
+    def cycle(self, st: _ArnoldiState, ops: _ArnoldiOps):
+        """One restart cycle from st.x, and its test."""
+        b = ops.b
+        m, reduce_sum = self.m, self.reduce_sum
+        v_dtype = b.dtype if self.basis_dtype is None else self.basis_dtype
+        tiny = torch.finfo(b.dtype).tiny
+        shape, n = b.shape, b.numel()
+        V = b.new_zeros((m + 1, n), dtype=v_dtype)
+        H = b.new_zeros((m + 1, m))
+        Q = b.new_zeros((m, n), dtype=v_dtype) if self.lgmres else None
+        beta = st.rnorm
+        V[0] = (st.r.reshape(-1) / torch.where(beta != 0, beta, tiny)).to(
+            v_dtype)
+        for j in range(m):
+            q = ops.precond(V[j].reshape(shape).to(b.dtype)).reshape(-1)
+            if j >= self.m_a:
+                # an error direction where Z holds one
+                q = torch.where(j - self.m_a < st.nz, st.Z[j - self.m_a], q)
+            w = ops.matvec(q.reshape(shape)).reshape(-1)
+            h1 = reduce_sum(_basis_dot(V, j + 1, w))
+            w = w - _basis_combine(V, j + 1, h1)
+            h2 = reduce_sum(_basis_dot(V, j + 1, w))
+            w = w - _basis_combine(V, j + 1, h2)
+            wnorm = torch.sqrt(reduce_sum(w @ w))
+            H[: j + 1, j] = h1 + h2
+            H[j + 1, j] = wnorm
+            V[j + 1] = (w / torch.where(wnorm > tiny, wnorm, 1.0)).to(v_dtype)
+            if Q is not None:
+                Q[j] = q.to(v_dtype)
+        y, res = hessenberg_lstsq_res(H, beta, m)
+        y = y.to(b.dtype)
+        Z, nz = st.Z, st.nz
+        if Q is None:
+            x = st.x + ops.precond(_basis_combine(V, m, y).reshape(shape))
+        else:
+            dx = _basis_combine(Q, m, y)  # Q already in solution space
+            x = st.x + dx.reshape(shape)
+            if self.k_aug > 0:
+                dxn = torch.sqrt(reduce_sum(dx @ dx))
+                z = dx / torch.where(dxn > tiny, dxn, 1.0)
+                Z = torch.cat([z[None], Z[:-1]])
+                nz = torch.clamp_max(nz + 1, self.k_aug)
+        # inner iterations of the cycle: the steps its residual profile
+        # needed to reach tol (all m but in the last cycle)
+        inner = torch.clamp_max(torch.sum(res > ops.tol) + 1, m)
+        r = b - ops.matvec(x)
+        st = _ArnoldiState(x=x, r=r, rnorm=self.norm(r), k=st.k + 1,
+                           its=st.its + inner, Z=Z, nz=nz)
+        return st, self.flags(st, ops.tol)
+
+
+def _arnoldi_solve(solver: _Arnoldi, program: Program, setup, args,
+                   name: str) -> KrylovResult:
+    """The host loop over a GMRES or LGMRES solve's pieces: one read at
+    the start and one per cycle."""
+    syncs0 = program.host_syncs
+    ops, st, flags = program.run(
+        f"{name}.start", lambda *a: solver.start(setup, *a), *args)
+    go, its, conv = program.read(flags)
+    cycles = 0
+    while go:
+        st, flags = program.loop(f"{name}.cycle", solver.cycle, st, ops)
+        go, its, conv = program.read(flags)
+        cycles += 1
+    return KrylovResult(
+        x=st.x, iterations=its, residual_norm=st.rnorm,
+        converged=bool(conv), host_syncs=program.host_syncs - syncs0,
+        matvecs=1 + cycles * (solver.m + 1),
+    )
+
+
+def gmres_solve(program: Program, setup: Callable, *args,
+                rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL,
+                restart: int = 30, max_restarts: int = 40,
+                basis_dtype: Optional[torch.dtype] = None,
+                reduce_sum: Callable = _identity,
+                name: str = "gmres") -> KrylovResult:
+    """Right-preconditioned restarted GMRES(restart) for A x = b from
+    x = 0, where (matvec, precond, b) = setup(*args) is evaluated inside
+    the solve's first piece (so that a Newton iteration can put its
+    Jacobian there); each cycle is one piece (_Arnoldi). Host reads: one
+    at the start and one per cycle; matvecs 1 + cycles (restart + 1)."""
+    solver = _Arnoldi(rtol, atol, restart, max_restarts, basis_dtype,
+                      reduce_sum)
+    return _arnoldi_solve(solver, program, setup, args, name)
+
+
+def lgmres_solve(program: Program, setup: Callable, *args,
+                 rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL,
+                 restart: int = 30, augment: int = 2,
+                 max_restarts: int = 40,
+                 basis_dtype: Optional[torch.dtype] = None,
+                 reduce_sum: Callable = _identity,
+                 name: str = "lgmres") -> KrylovResult:
+    """LGMRES, the reference's linear type "lgmres"
+    (timestepper.F90:1731-1734), shaped as gmres_solve: restart -
+    augment Arnoldi directions and `augment` error directions per
+    cycle."""
+    solver = _Arnoldi(rtol, atol, restart, max_restarts, basis_dtype,
+                      reduce_sum, augment=augment)
+    return _arnoldi_solve(solver, program, setup, args, name)
 
 
 def gmres(
@@ -317,82 +490,12 @@ def gmres(
     basis_dtype: Optional[torch.dtype] = None,
     reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> KrylovResult:
-    """Right-preconditioned restarted GMRES(m) from x = 0.
-
-    Arnoldi with two-pass classical Gram-Schmidt (CGS2) against the
-    whole basis, as the JAX package does: each cycle takes all `restart`
-    Arnoldi steps on the device with no host sync, then copies the
-    [m+1, m] Hessenberg matrix to the host (one sync), solves its least
-    squares there, and tests the true residual of the new iterate (one
-    sync). That residual starts the next cycle, so a cycle costs m + 1
-    operator applications.
-
-    basis_dtype: storage dtype of the Arnoldi basis V [m+1, n], the
-    solver's dominant workspace. With float32, H, the least squares and
-    every update stay in b.dtype: rows of V are cast to b.dtype a few at
-    a time where they meet a vector of b.dtype, the explicit form of the
-    JAX package's mixed-dtype promotion."""
-    if precond is None:
-        precond = lambda v: v  # noqa: E731
-    v_dtype = b.dtype if basis_dtype is None else basis_dtype
-    syncs = 0
-    matvecs = 0
-
-    def A(v):
-        nonlocal matvecs
-        matvecs += 1
-        return matvec(v)
-
-    tiny = torch.finfo(b.dtype).tiny
-    shape = b.shape
-    n = b.numel()
-    m = restart
-    x = torch.zeros_like(b)
-    def norm(a):
-        return torch.sqrt(reduce_sum(_dot(a, a)))
-
-    tol = torch.clamp_min(rtol * norm(b), atol)
-    r = b - A(x)
-    rnorm = norm(r)
-    syncs += 1
-    tol_h, rnorm_h = torch.stack([tol, rnorm]).double().cpu().tolist()
-    k = 0
-    its = 0
-    while rnorm_h > tol_h and k < max_restarts and np.isfinite(rnorm_h):
-        V = b.new_zeros((m + 1, n), dtype=v_dtype)
-        H = b.new_zeros((m + 1, m))
-        beta = rnorm
-        V[0] = (r.reshape(-1) / torch.where(beta != 0, beta, tiny)).to(
-            v_dtype)
-        for j in range(m):
-            w = A(precond(V[j].reshape(shape).to(b.dtype))).reshape(-1)
-            h1 = reduce_sum(_basis_dot(V, j + 1, w))
-            w = w - _basis_combine(V, j + 1, h1)
-            h2 = reduce_sum(_basis_dot(V, j + 1, w))
-            w = w - _basis_combine(V, j + 1, h2)
-            wnorm = torch.sqrt(reduce_sum(w @ w))
-            H[: j + 1, j] = h1 + h2
-            H[j + 1, j] = wnorm
-            V[j + 1] = (w / torch.where(wnorm > tiny, wnorm, 1.0)).to(v_dtype)
-        syncs += 1
-        host = torch.cat([H.reshape(-1), beta.reshape(1)]).double().cpu()
-        y, res_profile = _hessenberg_lstsq(host[:-1].numpy().reshape(m + 1, m),
-                                           float(host[-1]), m)
-        y = torch.as_tensor(y, dtype=b.dtype, device=b.device)
-        x = x + precond(_basis_combine(V, m, y).reshape(shape))
-        # inner iterations of the cycle: the steps its residual profile
-        # needed to reach tol (all m but in the last cycle)
-        its += min(int(np.sum(res_profile > tol_h)) + 1, m)
-        k += 1
-        r = b - A(x)
-        rnorm = norm(r)
-        syncs += 1
-        rnorm_h = float(rnorm)
-    converged = bool(rnorm_h <= tol_h and np.isfinite(rnorm_h))
-    return KrylovResult(
-        x=x, iterations=its, residual_norm=rnorm, converged=converged,
-        host_syncs=syncs, matvecs=matvecs,
-    )
+    """Right-preconditioned restarted GMRES(m) from x = 0, run eagerly
+    (gmres_solve)."""
+    return gmres_solve(
+        Program(), lambda: (matvec, precond, b), rtol=rtol, atol=atol,
+        restart=restart, max_restarts=max_restarts, basis_dtype=basis_dtype,
+        reduce_sum=reduce_sum)
 
 
 def lgmres(
@@ -407,94 +510,11 @@ def lgmres(
     basis_dtype: Optional[torch.dtype] = None,
     reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> KrylovResult:
-    """Loose GMRES (Baker, Jessup & Manteuffel 2005), PETSc's KSPLGMRES,
-    the reference's linear type "lgmres" (timestepper.F90:1731-1734),
-    right-preconditioned from x = 0.
-
-    Each cycle's subspace is `restart - augment` Arnoldi directions plus
-    the `augment` most recent approximate error vectors z_i = x_i -
-    x_{i-1} (normalised, one per earlier cycle). Until the z buffer
-    fills, plain Arnoldi directions stand in, so the first cycle is
-    exactly GMRES(restart). Host syncs and matvecs as in gmres: one
-    sync for the Hessenberg matrix and one for the true residual per
-    cycle, restart + 1 operator applications per cycle.
-
-    basis_dtype: storage dtype of the V and Q workspaces (see gmres);
-    the z vectors, H and every update stay in b.dtype."""
-    if precond is None:
-        precond = lambda v: v  # noqa: E731
-    k_aug = max(int(augment), 0)
-    m = restart
-    m_a = m - k_aug  # Arnoldi depth per cycle
-    if m_a < 1:
-        raise ValueError("lgmres restart must exceed augment")
-    v_dtype = b.dtype if basis_dtype is None else basis_dtype
-    syncs = 0
-    matvecs = 0
-
-    def A(v):
-        nonlocal matvecs
-        matvecs += 1
-        return matvec(v)
-
-    tiny = torch.finfo(b.dtype).tiny
-    shape = b.shape
-    n = b.numel()
-    x = torch.zeros_like(b)
-    def norm(a):
-        return torch.sqrt(reduce_sum(_dot(a, a)))
-
-    tol = torch.clamp_min(rtol * norm(b), atol)
-    r = b - A(x)
-    rnorm = norm(r)
-    syncs += 1
-    tol_h, rnorm_h = torch.stack([tol, rnorm]).double().cpu().tolist()
-    Z = []  # the latest error directions, newest first, in b.dtype
-    k = 0
-    its = 0
-    while rnorm_h > tol_h and k < max_restarts and np.isfinite(rnorm_h):
-        V = b.new_zeros((m + 1, n), dtype=v_dtype)
-        Q = b.new_zeros((m, n), dtype=v_dtype)  # the directions applied
-        H = b.new_zeros((m + 1, m))
-        beta = rnorm
-        V[0] = (r.reshape(-1) / torch.where(beta != 0, beta, tiny)).to(
-            v_dtype)
-        for j in range(m):
-            if j >= m_a and j - m_a < len(Z):
-                q = Z[j - m_a]
-            else:
-                q = precond(V[j].reshape(shape).to(b.dtype)).reshape(-1)
-            w = A(q.reshape(shape)).reshape(-1)
-            h1 = reduce_sum(_basis_dot(V, j + 1, w))
-            w = w - _basis_combine(V, j + 1, h1)
-            h2 = reduce_sum(_basis_dot(V, j + 1, w))
-            w = w - _basis_combine(V, j + 1, h2)
-            wnorm = torch.sqrt(reduce_sum(w @ w))
-            H[: j + 1, j] = h1 + h2
-            H[j + 1, j] = wnorm
-            V[j + 1] = (w / torch.where(wnorm > tiny, wnorm, 1.0)).to(v_dtype)
-            Q[j] = q.to(v_dtype)
-        syncs += 1
-        host = torch.cat([H.reshape(-1), beta.reshape(1)]).double().cpu()
-        y, res_profile = _hessenberg_lstsq(host[:-1].numpy().reshape(m + 1, m),
-                                           float(host[-1]), m)
-        y = torch.as_tensor(y, dtype=b.dtype, device=b.device)
-        dx = _basis_combine(Q, m, y)  # Q already in solution space
-        x = x + dx.reshape(shape)
-        its += min(int(np.sum(res_profile > tol_h)) + 1, m)
-        if k_aug > 0:
-            dxn = torch.sqrt(reduce_sum(dx @ dx))
-            Z = [dx / torch.where(dxn > tiny, dxn, 1.0)] + Z[: k_aug - 1]
-        k += 1
-        r = b - A(x)
-        rnorm = norm(r)
-        syncs += 1
-        rnorm_h = float(rnorm)
-    converged = bool(rnorm_h <= tol_h and np.isfinite(rnorm_h))
-    return KrylovResult(
-        x=x, iterations=its, residual_norm=rnorm, converged=converged,
-        host_syncs=syncs, matvecs=matvecs,
-    )
+    """Loose GMRES from x = 0, run eagerly (lgmres_solve)."""
+    return lgmres_solve(
+        Program(), lambda: (matvec, precond, b), rtol=rtol, atol=atol,
+        restart=restart, augment=augment, max_restarts=max_restarts,
+        basis_dtype=basis_dtype, reduce_sum=reduce_sum)
 
 
 def bicgstab_l(
@@ -603,6 +623,12 @@ def bicgstab_l(
     )
 
 
+def max_restarts(max_iterations: int, restart: int) -> int:
+    """GMRES's and LGMRES's cycle cap for an iteration cap, as in the JAX
+    package: ceil(max_iterations / restart), at least 1."""
+    return max(1, -(-int(max_iterations) // max(restart, 1)))
+
+
 def solve(method: str, matvec, b, precond=None, rtol: float = DEFAULT_RTOL,
           max_iterations: int = 1000, restart: int = 30, augment: int = 2,
           ell: int = 2,
@@ -616,14 +642,14 @@ def solve(method: str, matvec, b, precond=None, rtol: float = DEFAULT_RTOL,
     if method in ("bcgs", "bicgstab"):
         return bicgstab(matvec, b, precond=precond, rtol=rtol,
                         max_iterations=max_iterations, reduce_sum=reduce_sum)
-    max_restarts = max(1, -(-int(max_iterations) // max(restart, 1)))
+    cycles = max_restarts(max_iterations, restart)
     if method == "gmres":
         return gmres(matvec, b, precond=precond, rtol=rtol, restart=restart,
-                     max_restarts=max_restarts, basis_dtype=basis_dtype,
+                     max_restarts=cycles, basis_dtype=basis_dtype,
                      reduce_sum=reduce_sum)
     if method == "lgmres":
         return lgmres(matvec, b, precond=precond, rtol=rtol, restart=restart,
-                      augment=augment, max_restarts=max_restarts,
+                      augment=augment, max_restarts=cycles,
                       basis_dtype=basis_dtype, reduce_sum=reduce_sum)
     if method in ("bcgsl", "bicgstabl"):
         return bicgstab_l(matvec, b, precond=precond, rtol=rtol, ell=ell,

@@ -20,11 +20,14 @@ ending in flags the host reads once:
 - (d) the update, transitions, bounds check, the residual at the new
   iterate and the convergence and failure flags (one read per
   iteration).
-The monitor's values ride on the reads. A Program runs the pieces
-eagerly or replays them as CUDA graphs (Simulation.make_step_fn picks it
-from the configuration). Linear methods other than bcgs run their own
-host loops inside an eager program. The host syncs are counted in
-NewtonResult.host_syncs.
+The monitor's values ride on the reads. GMRES and LGMRES take (b) and
+(c) as their start and cycle pieces (krylov.gmres_solve,
+krylov.lgmres_solve: one read at the start and one per cycle). A
+Program runs the pieces eagerly or replays them as CUDA graphs
+(Simulation.make_step_fn picks it from the configuration,
+program_covers); BiCGStab(l) and the lu preconditioner run their own
+host reads and so only in an eager program. The host syncs are counted
+in NewtonResult.host_syncs.
 """
 
 from __future__ import annotations
@@ -36,6 +39,15 @@ import torch
 from waiwera_tpu_torch.solver import krylov
 from waiwera_tpu_torch.solver.program import Program, distinct
 from waiwera_tpu_torch.solver.system import MethodCoeffs, System
+
+
+# what a graph program covers: the linear methods whose loops run as
+# device pieces, the preconditioners whose set-up and application hold
+# no host read, and those that the ELL route (meshes with no band
+# structure) replaces by block-Jacobi (precond.make_preconditioner)
+GRAPH_METHODS = ("bcgs", "gmres", "lgmres")
+GRAPH_PCS = ("none", "jacobi", "bjacobi", "asm", "ilu", "dilu", "sgs")
+ELL_GRAPH_PCS = ("line", "zline", "cpr", "cprmg")
 
 
 class NewtonParams(NamedTuple):
@@ -251,6 +263,50 @@ def _flags(values) -> torch.Tensor:
     return torch.stack([v.to(torch.float64) for v in values])
 
 
+def program_covers(system: System, params: "NewtonParams") -> bool:
+    """Whether every piece of a try under `params` can run as a CUDA
+    graph: a one-rank System, a linear method of GRAPH_METHODS and a
+    preconditioner of GRAPH_PCS (or of ELL_GRAPH_PCS on the ELL
+    route)."""
+    pc = params.linear_pc
+    return (not system.distributed
+            and params.linear_method in GRAPH_METHODS
+            and (pc in GRAPH_PCS
+                 or (system.bands is None and pc in ELL_GRAPH_PCS)))
+
+
+def _linear_solve(program, newton, st, rock, coeffs, t0, t1):
+    """(c): the Krylov solve of one Newton iteration, its set-up
+    (newton.operator) inside its first piece where the method runs as
+    pieces."""
+    system, p = newton.system, newton.params
+    kw = dict(rtol=p.linear_rtol, reduce_sum=system.reduce_sum,
+              name="newton.krylov")
+    args = (st, rock, coeffs, t0, t1)
+    if p.linear_method == "bcgs":
+        return krylov.bicgstab_solve(
+            program, newton.operator, *args,
+            max_iterations=p.linear_max_iterations, **kw)
+    if p.linear_method in ("gmres", "lgmres"):
+        max_restarts = krylov.max_restarts(p.linear_max_iterations,
+                                           p.linear_restart)
+        if p.linear_method == "gmres":
+            return krylov.gmres_solve(
+                program, newton.operator, *args, restart=p.linear_restart,
+                max_restarts=max_restarts, **kw)
+        return krylov.lgmres_solve(
+            program, newton.operator, *args, restart=p.linear_restart,
+            augment=p.linear_augment, max_restarts=max_restarts, **kw)
+    mv, pc, b = newton.operator(*args)
+    lin = krylov.solve(
+        p.linear_method, mv, b, precond=pc, rtol=p.linear_rtol,
+        max_iterations=p.linear_max_iterations, restart=p.linear_restart,
+        augment=p.linear_augment, ell=p.linear_ell,
+        reduce_sum=system.reduce_sum)
+    program.host_syncs += lin.host_syncs
+    return lin
+
+
 def newton_solve(
     system: System,
     y0: torch.Tensor,
@@ -280,6 +336,10 @@ def newton_solve(
     pool."""
     if program is None:
         program = Program()
+    if program.mode != "eager" and not program_covers(system, params):
+        raise ValueError(
+            f"graph program: linear method {params.linear_method!r} with "
+            f"preconditioner {params.linear_pc!r} runs eagerly only")
     newton = _Newton(system, params)
     p = params
     syncs0 = program.host_syncs
@@ -297,23 +357,7 @@ def newton_solve(
     matvecs = 0
     masked = 0
     while not converged and not failed and it < p.max_iterations:
-        if p.linear_method == "bcgs":
-            lin = krylov.bicgstab_solve(
-                program, newton.operator, st, rock, coeffs, t0, t1,
-                rtol=p.linear_rtol, max_iterations=p.linear_max_iterations,
-                reduce_sum=system.reduce_sum, name="newton.krylov")
-        else:
-            if program.mode != "eager":
-                raise ValueError(f"graph program: linear method "
-                                 f"{p.linear_method!r} runs eagerly only")
-            mv, pc, b = newton.operator(st, rock, coeffs, t0, t1)
-            lin = krylov.solve(
-                p.linear_method, mv, b, precond=pc, rtol=p.linear_rtol,
-                max_iterations=p.linear_max_iterations,
-                restart=p.linear_restart, augment=p.linear_augment,
-                ell=p.linear_ell, reduce_sum=system.reduce_sum,
-            )
-            program.host_syncs += lin.host_syncs
+        lin = _linear_solve(program, newton, st, rock, coeffs, t0, t1)
         matvecs += lin.matvecs
         masked += lin.masked_iterations
         st, flags = program.loop("newton.update", newton.update, st, lin.x,

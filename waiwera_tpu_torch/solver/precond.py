@@ -23,7 +23,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from waiwera_tpu_torch.ops.segment import SegmentSum
+from waiwera_tpu_torch.ops.segment import RowGather, SegmentSum
 from waiwera_tpu_torch.solver.bsr import BSRMatrix, BSRStructure
 from waiwera_tpu_torch.solver.smallblocks import (
     batch_from_em,
@@ -75,6 +75,8 @@ class ILU0Data(NamedTuple):
     lower_sum: SegmentSum
     upper_sum: SegmentSum
     lower_trans_pos: torch.Tensor
+    lower_gather: RowGather  # y[lower_cols]
+    upper_gather: RowGather  # z[upper_cols]
 
 
 def ilu0_split(structure: BSRStructure, device="cpu") -> ILU0Data:
@@ -91,12 +93,15 @@ def ilu0_split(structure: BSRStructure, device="cpu") -> ILU0Data:
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
+    lower_cols, upper_cols = t(cols[low]), t(cols[up])
     return ILU0Data(
-        lower_pos=t(low), lower_rows=t(rows[low]), lower_cols=t(cols[low]),
-        upper_pos=t(up), upper_rows=t(rows[up]), upper_cols=t(cols[up]),
+        lower_pos=t(low), lower_rows=t(rows[low]), lower_cols=lower_cols,
+        upper_pos=t(up), upper_rows=t(rows[up]), upper_cols=upper_cols,
         lower_sum=SegmentSum(rows[low], n, device),
         upper_sum=SegmentSum(rows[up], n, device),
         lower_trans_pos=t(trans),
+        lower_gather=RowGather(lower_cols),
+        upper_gather=RowGather(upper_cols),
     )
 
 
@@ -130,18 +135,18 @@ def dilu(matrix: BSRMatrix, split: ILU0Data, sweeps: int = 3, dtype=None):
         dinv = dinv.to(dtype)
         lower = lower.to(dtype)
         upper = upper.to(dtype)
-    lsum, lcols = split.lower_sum, split.lower_cols
-    usum, ucols = split.upper_sum, split.upper_cols
+    lsum, usum = split.lower_sum, split.upper_sum
+    lrows, urows = split.lower_gather, split.upper_gather
 
     def apply(r: torch.Tensor) -> torch.Tensor:
         r = r.to(dinv.dtype)
         y = _apply(dinv, r)
         for _ in range(sweeps):
-            ly = lsum.add(torch.zeros_like(r), _apply(lower, y[lcols]))
+            ly = lsum.add(torch.zeros_like(r), _apply(lower, lrows(y)))
             y = _apply(dinv, r - ly)
         z = y
         for _ in range(sweeps):
-            uz = usum.add(torch.zeros_like(r), _apply(upper, z[ucols]))
+            uz = usum.add(torch.zeros_like(r), _apply(upper, urows(z)))
             z = y - _apply(dinv, uz)
         return z
 

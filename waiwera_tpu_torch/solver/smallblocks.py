@@ -94,3 +94,46 @@ def apply_blocks_em(a2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             acc = t if acc is None else acc + t
         cols.append(acc)
     return torch.stack(cols, dim=1)
+
+
+def hessenberg_lstsq_res(H: torch.Tensor, beta: torch.Tensor, m: int):
+    """(y, res): the least-squares solution of min ||beta e1 - H y|| for
+    the [m+1, m] upper-Hessenberg H by Givens rotations, and the
+    residual profile res[j] = |g[j+1]| after column j (the GMRES
+    residual with j+1 Arnoldi vectors), in f64 on H's device with the
+    1e-300 guards of the JAX package's smallblocks.hessenberg_lstsq_res.
+    Nothing is read on the host: a rotation that the guard skips is the
+    identity, a back-substitution pivot it skips gives 0 (its row made
+    that of the identity with a zero right-hand side).
+
+    Few launches, since an eager cycle is bound by them: each rotation
+    G = [[c, s], [-s, c]] acts on the two rows of [R | g] as one 2 x 2
+    product; g[j+1] = -s_j g[j] before rotation j + 1 (g[j+1] is zero
+    until then), so res is |beta| times the running product of |s|; the
+    back substitution is one triangular solve."""
+    b = beta.to(torch.float64)
+    Rg = torch.cat([H.to(torch.float64), H.new_zeros((m + 1, 1),
+                                                     dtype=torch.float64)], 1)
+    Rg[0, m] = b
+    # made on the device: a Python number written into a CUDA tensor is
+    # a host-to-device copy, which a graph capture refuses
+    k = torch.arange(2, device=Rg.device)
+    kf = k.to(torch.float64)
+    identity = 1.0 - kf  # the skipped rotation's (c, s)
+    swap = torch.stack([k, 1 - k])  # G = cs[swap] * sign
+    sign = torch.stack([torch.ones_like(kf), 2.0 * kf - 1.0])
+    s = []
+    for j in range(m):
+        ab = Rg[j:j + 2, j]
+        r = torch.linalg.vector_norm(ab)
+        cs = torch.where(r > 1e-300, ab / r, identity)
+        Rg[j:j + 2] = (cs[swap] * sign) @ Rg[j:j + 2]
+        s.append(cs[1:])
+    res = torch.abs(b) * torch.cumprod(torch.abs(torch.cat(s)), 0)
+    U = torch.triu(Rg[:m, :m])
+    skip = torch.abs(torch.diagonal(U)) <= 1e-300
+    U = torch.where(skip[:, None], torch.eye(m, dtype=U.dtype,
+                                             device=U.device), U)
+    rhs = torch.where(skip, 0.0, Rg[:m, m])
+    y = torch.linalg.solve_triangular(U, rhs[:, None], upper=True)[:, 0]
+    return y, res

@@ -146,14 +146,11 @@ class System:
         )
 
     @cached_property
-    def _face_positions(self):
-        """(pos_lr, pos_rl) of every face's blocks in the BSR data."""
-        lr, rl = bsr.face_block_positions(
-            self.structure, self.mesh.face_cells.cpu().numpy()
-        )
-        device = self.mesh.is_ghost.device
-        return (torch.as_tensor(lr, device=device),
-                torch.as_tensor(rl, device=device))
+    def _bsr_assembly(self) -> bsr.Assembly:
+        """bsr.assemble's device tables for this mesh, built once."""
+        return bsr.assembly(self.structure,
+                            self.mesh.face_cells.cpu().numpy(),
+                            device=self.mesh.is_ghost.device)
 
     @cached_property
     def ell_tables(self) -> ell.ELLStructure:
@@ -415,12 +412,11 @@ class System:
 
     def assemble_bsr(self, parts) -> bsr.BSRMatrix:
         """Element-major block parts (diag2 [b*b, N], J[l,r] and J[r,l]
-        [b*b, F]) accumulated into BSR data."""
+        [b*b, F]) summed into BSR data (bsr.assemble)."""
         diag2, lr2, rl2 = parts
-        pos_lr, pos_rl = self._face_positions
-        return bsr.assemble(self.structure, batch_from_em(diag2),
-                            batch_from_em(lr2), batch_from_em(rl2),
-                            pos_lr, pos_rl)
+        return bsr.assemble(self.structure, self._bsr_assembly,
+                            batch_from_em(diag2), batch_from_em(lr2),
+                            batch_from_em(rl2))
 
     # -- linear operator -----------------------------------------------
 
