@@ -129,12 +129,14 @@ Phases (any failure raises and the exit code is nonzero):
    the ELL route (no kernel: launches 0); (b) the same construction at
    48 x 32 x 16 written as exodus (NetCDF-3) and as gmsh 2.2 ASCII, which
    must read to equal geometry (rtol 1e-12, face cells exactly), run from
-   the exodus file with bcgsl + asm; (c) phase 8 (c) "w"'s box from gmsh
+   the exodus file with bcgsl + asm through graphs (asserted); (c) phase
+   8 (c) "w"'s box from gmsh
    4.1 ASCII, which must take the band route with dia_spmv_f64 launches
    = Krylov matvecs, and phase 8 (c) "w"'s tries with y within rtol
    2e-5; (d) a 5 x 4 x 3 box of 20 m cubes in 6 tetrahedra each (720
-   unknowns) with lgmres + lu and the monitor, on the card and on the
-   CPU: the same tries, y within rtol 2e-5. Every monitored run must
+   unknowns) with lgmres + lu and the monitor, on the card (through
+   graphs, asserted) and on the CPU: the same tries, y within rtol
+   2e-5. Every monitored run must
    print one line per try and per Newton iteration. (a)'s file is also
    read with numpy and on the card (mesh/geometry.py), both timed: face
    order equal, geometry within rtol 1e-12;
@@ -198,15 +200,28 @@ Phases (any failure raises and the exit code is nonzero):
    wall, the kernels by device time); then PyTorch's row gathers
    (x[index], index_select) against ops/segment.py RowGather at the
    Krylov loops' shapes (ROW_GATHER_SHAPES), equal bit for bit, timed in
-   turns.
+   turns. (g) from (a)'s settled flagship, one step with line and one
+   with cpr (f32, bcgs, as the bench runs them) through graphs and
+   eagerly: the same counts and dia_spmv launches, y, regions, fluid,
+   balances and fluxes bitwise equal; 3 rounds in turns (medians,
+   ratio, host reads per try, capture seconds) and the kernels of one
+   factorisation and one application of each preconditioner
+   (torch.profiler over one replay of each as a CUDA graph, and over
+   one eager call). (h) (f)'s wedge field with bcgsl + asm and (i) lu
+   on phase 10 (d)'s tetrahedral box and on a 16 x 16 x 16 band-route
+   box (13,056 unknowns, f64 bcgs + lu), each as (e)-(f): bitwise
+   equal, timed in turns; printed: (h) the BiCGStab(l) chunks, (i) the
+   box's factorisation seconds per Jacobian and the linear-algebra
+   library behind it.
    `python3 chip_smoke.py --phase 12` runs phases 1, 2 and 12 alone.
-   Phases 4 (the bench's operating points and its stages), 6, 7, 8, 9
-   (its tracer step too, asserted) and 10 (a) and (c) run their covered
-   models as graphs (asserted: step_program "graph" in phases 4 and 7,
-   and in every model run the program that step_program_mode gives its
-   configuration); phase 11's ranks, phase 10's bcgsl and lu runs are
-   eager by their configuration, as is the C15 step cost (its A/B
-   switch patches Python).
+   Every one-rank configuration runs as graphs: phases 4 (the bench's
+   operating points and its stages, and the preconditioner sweep's
+   line and cpr), 6, 7, 8, 9 (its tracer step too), 10 and 12 (each
+   asserted: step_program "graph" in phases 4, 7 and 10 (b)-(d), and
+   in every model run the program that step_program_mode gives its
+   configuration); phase 11's ranks run eagerly (asserted and said: a
+   distributed System), as does the C15 step cost (its A/B switch
+   patches Python).
 
 Prints each bench section's wall time on its own line, then the model
 runs' times and counts, the bench's full JSON record, one JSON line
@@ -1441,6 +1456,12 @@ def check_bench(res, counts):
     if o["spmv_launches"] <= 0 or o["spmv_launches"] != o["krylov_matvecs"]:
         raise RuntimeError(f"f64 step: kernel launches {o['spmv_launches']}"
                            f" != Krylov matvecs {o['krylov_matvecs']}")
+    # the preconditioner sweep's line and cpr steps ran as replayed CUDA
+    # graphs (ROADMAP A18.3)
+    for pc in ("line", "cpr"):
+        o = res["pc_sweep"][pc].get("operating_point")
+        if o is None or o["step_program"] != "graph":
+            raise RuntimeError(f"pc sweep {pc}: {res['pc_sweep'][pc]}")
     if res["minc_spmv_path"] != "hybrid-dia":
         raise RuntimeError(f"MINC step took {res['minc_spmv_path']}")
     frac = res["spmv_roofline_fraction"]
@@ -1973,6 +1994,28 @@ def same_run(a, b, what, rtol=2e-5):
     torch.testing.assert_close(a[1].cpu(), b[1].cpu(), rtol=rtol, atol=rtol)
 
 
+def tet_box_config(workdir):
+    """Phase 10 (d)'s model: TET_BOX cubes of 6 tetrahedra each from a
+    gmsh 4.1 binary file it writes in `workdir`, lgmres + lu, the
+    monitor on. Returns (config, the file's write seconds)."""
+    verts, tets, top = tet_box(*TET_BOX, h=TET_SIDE)
+    tet = os.path.join(workdir, "tet_box.msh")
+    t0 = time.perf_counter()
+    write_gmsh(tet, verts, [("tetra", tets)], version="4.1", binary=True)
+    write_s = time.perf_counter() - t0
+    nx, ny, nz = TET_BOX
+    ncol = 6 * nx * ny
+
+    def cell(i, j, k, q=0):
+        return 6 * (i + nx * (j + ny * k)) + q
+
+    cfg = mesh_file_config(tet, ncol, nz, TET_SIDE,
+                           cell(nx // 2, ny // 2, nz - 2),
+                           cell(nx // 4, ny // 2, 0), top, steps=3,
+                           solver=LGMRES_LU, monitor=True)
+    return cfg, write_s
+
+
 def mesh_file_phase(workdir, counters, w_run, log=log):
     """Phase 10: models read from mesh files. (a) the wedge field at
     WEDGE_FIELD from gmsh 4.1 binary, lgmres + asm, monitor on, with the
@@ -2034,6 +2077,9 @@ def mesh_file_phase(workdir, counters, w_run, log=log):
     ts, rec = mesh_file_run(workdir, "b", cfg, counters, write_s, log=log)
     if rec["route"] != "ell":
         raise RuntimeError(f"phase 10 (b) took the {rec['route']} route")
+    if ts.stats["step_program"] != "graph":
+        raise RuntimeError(f"phase 10 (b): step program "
+                           f"{ts.stats['step_program']}")
     add(rec)
     del ts
 
@@ -2059,27 +2105,16 @@ def mesh_file_phase(workdir, counters, w_run, log=log):
     del ts
 
     # (d) the tetrahedral box with lgmres + lu on the card and the CPU
-    verts, tets, top = tet_box(*TET_BOX, h=TET_SIDE)
-    tet = os.path.join(workdir, "tet_box.msh")
-    t0 = time.perf_counter()
-    write_gmsh(tet, verts, [("tetra", tets)], version="4.1", binary=True)
-    write_s = time.perf_counter() - t0
-    nx, ny, nz = TET_BOX
-    ncol = 6 * nx * ny
-
-    def cell(i, j, k, q=0):
-        return 6 * (i + nx * (j + ny * k)) + q
-
-    cfg = mesh_file_config(tet, ncol, nz, TET_SIDE,
-                           cell(nx // 2, ny // 2, nz - 2),
-                           cell(nx // 4, ny // 2, 0), top, steps=3,
-                           solver=LGMRES_LU, monitor=True)
+    cfg, write_s = tet_box_config(workdir)
     pair = []
     for dev in (None, "cpu"):
         ts, rec = mesh_file_run(workdir, "d", cfg, counters, write_s,
                                 device=dev, log=log)
         if dev is None:
             add(rec)
+            if ts.stats["step_program"] != "graph":
+                raise RuntimeError(f"phase 10 (d): step program "
+                                   f"{ts.stats['step_program']}")
         else:
             records.append(rec)
         pair.append(ts)
@@ -2429,7 +2464,8 @@ def graph_flagship(log=log, rounds=GRAPH_ROUNDS):
     log(f"phase 12 (b) split {json.dumps(rec['split'])}")
     rec["chunk_sweep"] = chunk_sweep(sim, call, dt, rg, log=log,
                                      rounds=rounds)
-    return rec
+    settled = (y, region, temp, lhs, lhs2, t, dt, dt_last, first, fluid, fx)
+    return rec, sim, settled
 
 
 def piece_split(timing):
@@ -2592,7 +2628,8 @@ def _run_record(ts, wall):
 
 
 def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
-                      monitor_lines=False, device=None):
+                      monitor_lines=False, device=None,
+                      split=("graph", "eager")):
     """Timestepper runs of `config` through the graph program (one
     Simulation, so that later runs replay the first one's captures) and
     eagerly (another): a first run in each mode, then `rounds` timed
@@ -2600,13 +2637,16 @@ def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
     tries, counts (flow and tracer iterations, matvecs) and final state
     (y, regions, tracers, the network's flows over the last step) are
     bitwise equal to the first graph run's; on the card, one more run in
-    each mode through profiled_run (the graph run under the profiler).
-    Returns each mode's timed runs, its first run under mode + "_first"
-    and its profiled run under mode + "_split" (device None: the CUDA
-    device)."""
+    each mode of `split` through profiled_run (the graph run under the
+    profiler). Returns each mode's timed runs, its first run under mode
+    + "_first" and its profiled run under mode + "_split" (device None:
+    the CUDA device)."""
+    from waiwera_tpu_torch.ops import dia
     from waiwera_tpu_torch.sim.simulation import Simulation
     from waiwera_tpu_torch.sim.timestepper import Timestepper
 
+    kernels = (("dia_spmv", dia.dia_spmv_launches),
+               ("dia_spmv_f64", dia.dia_spmv_f64_launches))
     sims = {}
     for mode in ("graph", "eager"):
         sims[mode] = Simulation(json.loads(json.dumps(config)),
@@ -2620,6 +2660,8 @@ def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
             ts = Timestepper(json.loads(json.dumps(config)), sims[mode],
                              logger=_QuietLog())
             lines = LineCount(sys.stdout)
+            for _, c in kernels:
+                c.count = 0
             _sync(sims[mode].device)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(lines):
@@ -2629,6 +2671,8 @@ def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
             _sync(sims[mode].device)
             rec = _run_record(ts, time.perf_counter() - t0)
             rec["monitor_lines"] = lines.count
+            # the band SpMV's launches: a replay adds its graph's
+            rec["counts"]["launches"] = {k: c.count for k, c in kernels}
             if r == 0:
                 first[mode] = rec
             else:
@@ -2657,7 +2701,7 @@ def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
             _same_state(rec["state"], ref["state"],
                         f"phase 12 {label} {mode} run {i} final state")
     for mode, sim in sims.items():
-        if sim.device.type == "cuda":
+        if sim.device.type == "cuda" and mode in split:
             # the kernel table of the graph run only: the same kernels
             # run eagerly, and a profile of the eager run costs ~30 s
             runs[mode + "_split"] = profiled_run(sim, config,
@@ -2789,19 +2833,24 @@ def graph_production_field(log=log, rounds=GRAPH_MODEL_ROUNDS):
     return rec
 
 
-def graph_wedge_field(workdir, log=log, rounds=GRAPH_MODEL_ROUNDS):
-    """Phase 12 (f): phase 10 (a)'s wedge field (WEDGE_FIELD from gmsh
-    4.1 binary, the ELL route, lgmres + asm, the monitor on, 3 steps)
+def write_wedge_field(workdir):
+    """Phase 10 (a)'s wedge field (WEDGE_FIELD) as a gmsh 4.1 binary
+    file in `workdir`: (path, the plan positions)."""
+    verts, wedges, pos = wedge_mesh(*WEDGE_FIELD)
+    path = os.path.join(workdir, "wedge_field_p12.msh")
+    write_gmsh(path, verts, [("wedge", wedges)], version="4.1", binary=True)
+    return path, pos
+
+
+def graph_wedge_field(path, pos, log=log, rounds=GRAPH_MODEL_ROUNDS):
+    """Phase 12 (f): phase 10 (a)'s wedge field (write_wedge_field's
+    file, the ELL route, lgmres + asm, the monitor on, 3 steps)
     through graphs and eagerly in turns: bitwise equal with equal counts
     and monitor lines; the run loops, host reads per try, capture
     seconds and LGMRES cycles."""
     from waiwera_tpu_torch import bench
 
     nx, ny, nz = WEDGE_FIELD
-    verts, wedges, pos = wedge_mesh(nx, ny, nz)
-    path = os.path.join(workdir, "wedge_field_p12.msh")
-    write_gmsh(path, verts, [("wedge", wedges)], version="4.1", binary=True)
-    del verts, wedges
     cfg = wedge_model_config(path, nx, ny, nz, pos, steps=3,
                              solver=LGMRES_ASM, monitor=True)
     cfg.pop("output", None)
@@ -2853,6 +2902,307 @@ def graph_wedge_field(workdir, log=log, rounds=GRAPH_MODEL_ROUNDS):
     return rec
 
 
+def model_turns_record(runs, label):
+    """The timed rounds of graph_model_turns as a record: per mode the
+    run loops and their median, host reads per try and captures, and the
+    first runs apart (the graph run's captures included); the ratio of
+    the medians (replays against eager runs)."""
+    rec = {}
+    for mode in ("graph", "eager"):
+        st = [r["stats"] for r in runs[mode]]
+        loop = [r["run_loop_s"] for r in runs[mode]]
+        first = runs[mode + "_first"]
+        rec[mode] = {
+            "run_loop_s": loop, "run_loop_s_median": _quartiles(loop)[1],
+            "host_syncs_per_try": [
+                (s["host_syncs_step"] + s["host_syncs_timestepper"])
+                / s["tries"] for s in st],
+            "graph_captures": [s["graph_captures"] for s in st],
+            "first_run": {
+                "run_loop_s": first["run_loop_s"],
+                "graph_captures": first["stats"]["graph_captures"],
+                "graph_capture_seconds": first["stats"][
+                    "graph_capture_seconds"]},
+        }
+    rec["run_loop_graph_over_eager"] = (rec["graph"]["run_loop_s_median"]
+                                        / rec["eager"]["run_loop_s_median"])
+    if any(rec["graph"]["graph_captures"]) or not rec["graph"][
+            "first_run"]["graph_captures"]:
+        raise RuntimeError(
+            f"phase 12 {label}: graph captures "
+            f"{rec['graph']['first_run']['graph_captures']} in the first "
+            f"run, {rec['graph']['graph_captures']} after")
+    c = runs["graph"][0]["counts"]
+    rec.update(tries=c["tries"], newton=c["newton_iterations"],
+               krylov=c["linear_iterations"], matvecs=c["matvecs"],
+               masked=c["masked_krylov_iterations"],
+               launches=c["launches"])
+    return rec
+
+
+def cuda_events(fn):
+    """fn() once under torch.profiler: the number of device events
+    (kernels, copies and fills) it ran, and their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in kern), [e.key for e in kern]
+
+
+def pc_kernels(sim, pc, settled):
+    """The kernels one factorisation (the operator and preconditioner
+    built from the Jacobian's parts, as a try's Krylov start piece does)
+    and one application of preconditioner `pc` launch at the settled
+    flagship state, f32 as the bench runs them: each captured as a CUDA
+    graph and counted under torch.profiler over one replay, and over one
+    eager call of the same code."""
+    from waiwera_tpu_torch.solver.program import CudaGraphs, Program
+    from waiwera_tpu_torch.solver.system import MethodCoeffs
+
+    y, region, _, lhs, _, t, dt, _, _, _, _ = settled
+    system = sim.system
+    coeffs = MethodCoeffs(c_lhs=1.0, dt_eff=dt, const=-lhs)
+    parts = system.jacobian_parts(y, region, sim.rock, coeffs, t, t + dt,
+                                  tangent_dtype=torch.float32)
+    gen = torch.Generator(device=sim.device).manual_seed(0)
+    r = torch.randn(tuple(y.shape), generator=gen, device=sim.device)
+
+    def factor(p):
+        return system.linear_operator_from_parts(
+            p, pc, dtype=torch.float32)[1]
+
+    prog = Program(CudaGraphs(sim.device))
+    p_s, r_s = prog.stage("in", (parts, r))
+    apply = prog.run("factor", factor, p_s)
+    z = prog.run("apply", apply, r_s)
+    if not torch.equal(z, apply(r_s)):
+        raise RuntimeError(f"phase 12 (g): {pc}'s replayed apply differs "
+                           "from its eager call")
+    out = {}
+    for what, fn in (("factor", lambda: prog.run("factor", factor, p_s)),
+                     ("apply", lambda: prog.run("apply", apply, r_s))):
+        out[f"{what}_kernels_replay"] = cuda_events(fn)[0]
+    out["factor_kernels_eager"] = cuda_events(lambda: factor(parts))[0]
+    out["apply_kernels_eager"] = cuda_events(lambda: apply(r))[0]
+    return out
+
+
+GRAPH_PC_ROUNDS = 3  # phase 12 (g)'s timed rounds per preconditioner
+
+
+def graph_line_cpr(sim, settled, log=log, rounds=GRAPH_PC_ROUNDS):
+    """Phase 12 (g): from the flagship state (a) settled (band route, f32
+    Jacobian and BiCGStab, as the bench runs them) one step with line
+    and one with cpr through graphs and eagerly: the same Newton,
+    BiCGStab, matvec and masked counts and dia_spmv launches, y,
+    regions, fluid, balances and fluxes bitwise equal; then `rounds`
+    rounds in turns, the order reversed every other round; the medians
+    and their ratio, host reads per try, capture seconds and the kernels
+    of one factorisation and one application (pc_kernels)."""
+    from waiwera_tpu_torch import bench
+    from waiwera_tpu_torch.ops import dia
+
+    y, region, temp, lhs, lhs2, t, dt, dt_last, first, fluid, fx = settled
+    out = {}
+    for pc in ("line", "cpr"):
+        steps = {"graph": make_step(sim, pc),
+                 "eager": make_step(sim, pc, eager=True)}
+        if (steps["graph"].program_mode, steps["eager"].program_mode) != (
+                "graph", "eager"):
+            raise RuntimeError(f"phase 12 (g) {pc}: step programs "
+                               f"{steps['graph'].program_mode}, "
+                               f"{steps['eager'].program_mode}")
+
+        def call(step):
+            return step(y, region, temp, lhs, lhs2, t, dt, dt_last, first,
+                        fluid_last=fluid, fluxes_last=fx)
+
+        outs, launches, first_s = {}, {}, {}
+        for mode in ("graph", "eager"):
+            dia.dia_spmv_launches.count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[mode] = call(steps[mode])
+            torch.cuda.synchronize()
+            first_s[mode] = time.perf_counter() - t0
+            launches[mode] = dia.dia_spmv_launches.count
+        rg, re_ = outs["graph"][0], outs["eager"][0]
+        counts = [(r.converged, r.failed, r.iterations, r.linear_iterations,
+                   r.matvecs, r.masked_iterations, r.host_syncs, n)
+                  for r, n in ((rg, launches["graph"]),
+                               (re_, launches["eager"]))]
+        if counts[0] != counts[1]:
+            raise RuntimeError(f"phase 12 (g) {pc}: counts differ {counts}")
+        _same_state((rg.y, rg.region, rg.max_residual)
+                    + tuple(outs["graph"][1:]),
+                    (re_.y, re_.region, re_.max_residual)
+                    + tuple(outs["eager"][1:]),
+                    f"phase 12 (g) {pc} step")
+        times = {"graph": [], "eager": []}
+        for r in range(rounds):
+            for mode in (("graph", "eager") if r % 2 == 0
+                         else ("eager", "graph")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = call(steps[mode])[0]
+                torch.cuda.synchronize()
+                times[mode].append(time.perf_counter() - t0)
+                if res.matvecs != rg.matvecs or not torch.equal(res.y, rg.y):
+                    raise RuntimeError(f"phase 12 (g) {pc}: {mode} round "
+                                       f"{r} differs from the first step")
+        med = {m: statistics.median(v) for m, v in times.items()}
+        rec = {
+            "pc": pc, "dt": dt, "converged": rg.converged,
+            "newton": rg.iterations, "bicgstab": rg.linear_iterations,
+            "masked": rg.masked_iterations, "matvecs": rg.matvecs,
+            "dia_spmv_launches": launches["graph"],
+            "host_syncs_per_try": rg.host_syncs,
+            "graph_s": times["graph"], "eager_s": times["eager"],
+            "graph_s_median": med["graph"], "eager_s_median": med["eager"],
+            "graph_over_eager": med["graph"] / med["eager"],
+            "first_step_s": first_s,
+            "graph_captures": steps["graph"].stats()["graph_captures"],
+            "graph_capture_seconds": steps["graph"].stats()[
+                "graph_capture_seconds"],
+            "rounds": rounds, "card": bench.card(),
+            **pc_kernels(sim, pc, settled),
+        }
+        log(f"phase 12 (g) {json.dumps(rec)}")
+        rec["split"] = {m: step_split(steps[m], call)
+                        for m in ("graph", "eager")}
+        log(f"phase 12 (g) {pc} split {json.dumps(rec['split'])}")
+        out[pc] = rec
+        del steps, outs
+    return out
+
+
+def graph_bcgsl_field(path, pos, log=log, rounds=GRAPH_MODEL_ROUNDS):
+    """Phase 12 (h): the wedge field of (f) with phase 10 (b)'s solver,
+    bcgsl + asm (ELL route, the monitor on, 3 steps), through graphs and
+    eagerly in turns: bitwise equal with equal counts and monitor lines;
+    the run loops, host reads per try and BiCGStab(l) chunks."""
+    from waiwera_tpu_torch import bench
+    from waiwera_tpu_torch.solver import krylov, newton
+
+    nx, ny, nz = WEDGE_FIELD
+    cfg = wedge_model_config(path, nx, ny, nz, pos, steps=3,
+                             solver=BCGSL_ASM, monitor=True)
+    cfg.pop("output", None)
+    runs = graph_model_turns(cfg, "(h)", log=log, rounds=rounds,
+                             monitor_lines=True, split=("graph",))
+    rec = model_turns_record(runs, "(h)")
+    if any(rec["launches"].values()):
+        raise RuntimeError(f"phase 12 (h) on the ELL route launched "
+                           f"{rec['launches']}")
+    ell = newton.NewtonParams().linear_ell
+    per_chunk = 2 * ell * max(1, krylov.CHUNK // ell)  # matvecs a chunk
+    chunks, rem = divmod(rec["matvecs"], per_chunk)
+    if rem:
+        raise RuntimeError(f"phase 12 (h): matvecs {rec['matvecs']} are not "
+                           f"{per_chunk} per chunk")
+    rec.update(wedges=2 * nx * ny * nz, rounds=rounds, card=bench.card(),
+               ell=ell, bcgsl_chunks=chunks,
+               monitor_lines=runs["graph"][0]["monitor_lines"])
+    log(f"phase 12 (h) {json.dumps(rec)}")
+    rec["split"] = {m: runs.get(m + "_split") for m in ("graph", "eager")}
+    log(f"phase 12 (h) split {json.dumps(rec['split'])}")
+    return rec
+
+
+LU_BOX = (16, 16, 16)  # phase 12 (i): 13,056 unknowns with the ghost layer
+
+
+def lu_factor_cost(cfg, reps=5):
+    """precond.lu's factorisation of the model's first Jacobian on the
+    card (densify at the kept positions, lu_factor_ex): the median
+    seconds of `reps` calls (the card synchronised), its unknowns, the
+    linear-algebra backend PyTorch prefers and the device kernels of one
+    factorisation whose names say which library ran it."""
+    from waiwera_tpu_torch.sim.simulation import Simulation
+    from waiwera_tpu_torch.solver import precond
+    from waiwera_tpu_torch.solver.system import MethodCoeffs
+
+    sim = Simulation(json.loads(json.dumps(cfg)))
+    system = sim.system
+    lhs, _, _ = sim.lhs_at(sim.y0, sim.region0)
+    size = cfg["time"]["step"]["size"]
+    coeffs = MethodCoeffs(c_lhs=1.0, dt_eff=size, const=-lhs)
+    parts = system.jacobian_parts(sim.y0, sim.region0, sim.rock, coeffs,
+                                  0.0, size)
+    mat = system.assemble_bsr(parts)
+
+    def factor():
+        return precond.lu(mat, positions=system.lu_positions)
+
+    factor()
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        factor()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    # the library's kernels: cuSOLVER's getrf and MAGMA's name
+    # themselves; the trailing updates are cuBLAS gemms
+    _, names = cuda_events(factor)
+    libs = sorted({k[:60] for k in names if any(
+        w in k.lower() for w in ("getrf", "magma", "laswp", "trsm"))})
+    gemms = sum("gemm" in k.lower() for k in names)
+    return {"unknowns": system.mesh.num_cells * system.npv,
+            "route": route(system), "dtype": str(mat.data.dtype),
+            "factor_s": secs, "factor_s_median": statistics.median(secs),
+            "preferred_linalg_library": str(
+                torch.backends.cuda.preferred_linalg_library()),
+            "library_kernels": libs, "gemm_kernels": gemms}
+
+
+def graph_lu(workdir, log=log, rounds=GRAPH_MODEL_ROUNDS):
+    """Phase 12 (i): lu at its largest size: phase 10 (d)'s tetrahedral
+    box (lgmres + lu, the monitor on, 3 steps) and LU_BOX of the
+    flagship model on the band route with f64 bcgs + lu (2 steps), each
+    through graphs and eagerly in turns, bitwise equal with equal
+    counts; the box's factorisation per Jacobian (lu_factor_cost)."""
+    from waiwera_tpu_torch import bench
+
+    tet, _ = tet_box_config(workdir)
+    tet.pop("output", None)
+    runs = graph_model_turns(tet, "(i) tetrahedra", log=log, rounds=rounds,
+                             monitor_lines=True, split=("graph",))
+    rec = {"tetrahedra": model_turns_record(runs, "(i) tetrahedra")}
+    box = model_config(*LU_BOX, steps=2)
+    box.pop("output")
+    box["time"]["step"]["solver"]["linear"] = {
+        "type": "bcgs", "preconditioner": {"type": "lu"}}
+    runs_b = graph_model_turns(box, "(i) box", log=log, rounds=rounds,
+                               split=("graph",))
+    rec["box"] = model_turns_record(runs_b, "(i) box")
+    rec["box"]["size"] = list(LU_BOX)
+    rec["box"]["factorisation"] = lu_factor_cost(box)
+    if rec["box"]["factorisation"]["route"] != "band":
+        raise RuntimeError("phase 12 (i): the box took the "
+                           f"{rec['box']['factorisation']['route']} route")
+    # every Krylov matvec of the box launched the f64 band SpMV kernel
+    if rec["box"]["launches"]["dia_spmv_f64"] != rec["box"]["matvecs"]:
+        raise RuntimeError(f"phase 12 (i): launches "
+                           f"{rec['box']['launches']} for "
+                           f"{rec['box']['matvecs']} matvecs")
+    rec.update(rounds=rounds, card=bench.card())
+    log(f"phase 12 (i) {json.dumps(rec)}")
+    rec["split"] = {"tetrahedra": {m: runs.get(m + "_split")
+                                   for m in ("graph", "eager")},
+                    "box": {m: runs_b.get(m + "_split")
+                            for m in ("graph", "eager")}}
+    log(f"phase 12 (i) split {json.dumps(rec['split'])}")
+    return rec
+
+
 ROW_GATHER_SHAPES = (  # (rows, width, dtype) of the Krylov loops' gathers
     (557_056, 2, torch.float64),  # the wedge field's ELL and DILU
     (532_480, 2, torch.float64),  # the production field's tracers
@@ -2894,11 +3244,15 @@ def graph_phase(log=log):
     model from a first step size that is refused; (d) two BDF2 runs at
     other first step sizes through one captured program; (e) phase 9's
     production field and (f) phase 10 (a)'s wedge field through graphs
-    and eagerly in turns."""
+    and eagerly in turns; (g) line and cpr from (a)'s settled flagship;
+    (h) the wedge field with bcgsl + asm; (i) lu on the tetrahedral box
+    and on a band-route box."""
     from waiwera_tpu_torch import bench
 
     t0 = time.perf_counter()
-    flag = graph_flagship(log=log)
+    flag, sim, settled = graph_flagship(log=log)
+    line_cpr = graph_line_cpr(sim, settled, log=log)
+    del sim, settled
     release()
     cfg = model_config(*bench.REDUCED, steps=3)
     cfg.pop("output")
@@ -2911,12 +3265,15 @@ def graph_phase(log=log):
     release()
     field = graph_production_field(log=log)
     with tempfile.TemporaryDirectory() as workdir:
-        wedge = graph_wedge_field(workdir, log=log)
+        path, pos = write_wedge_field(workdir)
+        wedge = graph_wedge_field(path, pos, log=log)
+        bcgsl = graph_bcgsl_field(path, pos, log=log)
+        lu = graph_lu(workdir, log=log)
     gathers = row_gather_cost(log=log)
     log(f"phase 12 (graph program) {time.perf_counter() - t0:.2f} s")
-    return {"flagship": flag, "refused": refused, "bdf2": bdf2,
-            "production_field": field, "wedge_field": wedge,
-            "row_gathers": gathers}
+    return {"flagship": flag, "line_cpr": line_cpr, "refused": refused,
+            "bdf2": bdf2, "production_field": field, "wedge_field": wedge,
+            "bcgsl": bcgsl, "lu": lu, "row_gathers": gathers}
 
 
 # phase 11: the multi-device run, ranks sharing the card through gloo
@@ -2954,9 +3311,15 @@ def ranks_run(labels, cfgs, devices, log=log):
                 f" s, launches {x['launches']}, route {x['route']}")
             if not x["ok"]:
                 raise RuntimeError(f"phase 11 ({label}): rank {r} aborted")
+            if st["step_program"] != "eager":
+                raise RuntimeError(f"phase 11 ({label}): rank {r} ran the "
+                                   f"step program {st['step_program']}")
             if not np.array_equal(x["y"], res[0]["y"]):
                 raise RuntimeError(f"phase 11 ({label}): ranks 0 and {r} "
                                    "hold different global states")
+        log(f"phase 11 ({label}): every rank ran its tries eagerly (a "
+            "distributed System: no graph program covers ranks, ROADMAP "
+            "A18.5)")
         out.append(res)
     return out, wall
 

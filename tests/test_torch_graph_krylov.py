@@ -9,7 +9,7 @@ equal iterations, matvecs and host reads (1 + cycles), and against the
 JAX package's gmres/lgmres at tests/test_torch_krylov_more.py's
 tolerances, with the basis in f64 and in f32; the gate of the graph
 program (sim/simulation.py step_program_mode) by route, method and
-preconditioner, Newton refusing the eager-only methods in a graph
+preconditioner, Newton refusing a distributed System in a graph
 program, and the bench's stage breakdown composed in graph mode."""
 
 import time
@@ -161,11 +161,11 @@ def _system(route, distributed=False):
     ("ell", "bcgs", "none", "graph"),
     ("ell", "gmres", "line", "graph"),
     ("ell", "lgmres", "cpr", "graph"),
-    ("band", "bcgs", "line", "eager"),
-    ("band", "gmres", "cpr", "eager"),
-    ("ell", "lgmres", "lu", "eager"),
-    ("band", "bcgsl", "asm", "eager"),
-    ("ell", "bcgsl", "bjacobi", "eager"),
+    ("band", "bcgs", "line", "graph"),
+    ("band", "gmres", "cpr", "graph"),
+    ("ell", "lgmres", "lu", "graph"),
+    ("band", "bcgsl", "asm", "graph"),
+    ("ell", "bcgsl", "bjacobi", "graph"),
     ("ranks", "bcgs", "bjacobi", "eager"),
 ])
 def test_step_program_mode_table(route, method, pc, mode):
@@ -181,18 +181,16 @@ def test_step_program_mode_table(route, method, pc, mode):
 @pytest.mark.parametrize("method, pc", [("bcgsl", "bjacobi"),
                                         ("bcgs", "lu"), ("gmres", "line")])
 def test_newton_refuses_eager_methods_in_a_graph_program(method, pc):
-    """bcgsl, lu and (on the band route) line raise in a graph program
-    rather than running eagerly."""
+    """A distributed System (ranks) raises in a graph program rather
+    than running eagerly, whatever its method and preconditioner."""
     from waiwera_tpu_torch.bench import newton_params
     from waiwera_tpu_torch.solver.newton import newton_solve
     from waiwera_tpu_torch.solver.program import Program
 
-    sim = build_sim(5, 4, 3, "cpu")
     params = newton_params(pc)._replace(linear_method=method)
-    lhs0, fluid0, _ = sim.lhs_at(sim.y0, sim.region0)
-    with pytest.raises(ValueError, match="runs eagerly only"):
-        newton_solve(sim.system, sim.y0, sim.region0, fluid0.temperature,
-                     sim.rock, None, 0.0, 1.0e5, lhs0, params=params,
+    with pytest.raises(ValueError, match="distributed System runs eagerly"):
+        newton_solve(_system("band", distributed=True), None, None, None,
+                     None, None, 0.0, 1.0e5, None, params=params,
                      program=Program(EmulatedGraphs()))
 
 

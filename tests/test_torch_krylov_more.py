@@ -112,9 +112,13 @@ def test_bicgstab_l_matches_jax(n, b, seed, ell, pc):
     rt = tk.bicgstab_l(mv, torch.as_tensor(rhs), precond=pt, rtol=1e-10,
                        ell=ell)
     _same(rt, rj, xstar)
-    sweeps = rt.iterations // ell
-    assert rt.host_syncs == sweeps + 1
-    assert rt.matvecs == 2 * ell * sweeps
+    # sweeps run in masked chunks of CHUNK // ell: one host read per
+    # chunk, and every sweep run applies the operator 2 ell times
+    per_chunk = max(1, tk.CHUNK // ell)
+    chunks = -(-(rt.iterations // ell) // per_chunk)
+    assert rt.host_syncs == 1 + chunks
+    assert rt.matvecs == 2 * ell * per_chunk * chunks
+    assert rt.masked_iterations == ell * per_chunk * chunks - rt.iterations
 
 
 def _lu_pair(mj, mt, eps, seed):

@@ -15,6 +15,16 @@ import numpy as np
 import pytest
 
 from chip_smoke import wedge_mesh, write_gmsh
+from torch_parity import jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library():
+    """The JAX package's plans and routines with its C++ library, as it
+    runs where the library builds (torch_parity.jax_native: workers that
+    race for its first build would compare the port with the package's
+    fallbacks)."""
+    jax_native()
 
 
 def _assert_plans_equal(pt, pj):

@@ -15,10 +15,45 @@ from chip_smoke import (build_sim, eos_model_config, flagship_config,
                         flagship_spacing, network_model_config)
 
 __all__ = ["RecordingLogger", "assert_same_records", "eos_model_config",
-           "flagship_config", "jax_coeffs", "jax_sim", "model_config",
+           "flagship_config", "jax_coeffs", "jax_native", "jax_sim",
+           "model_config",
            "network_model_config", "np_", "rect_system_pair", "sim_pair",
            "torch_coeffs",
            "torch_sim"]
+
+
+def jax_native():
+    """The JAX package's C++ library (waiwera_tpu/native), loaded in this
+    process. That package builds it at first use through one fixed
+    temporary file name, so test workers that start together on a fresh
+    checkout can race for it; a worker that loses gives the library up
+    for its whole life and takes the numpy fallbacks and RCB without a
+    word (ROADMAP C17, C21), which changes its partitions. A failed load
+    is retried here once after a build of this process's own, with the
+    package's own g++ commands, into a temporary name of its own that is
+    then renamed onto the library's path."""
+    import os
+    import subprocess
+
+    from waiwera_tpu import native
+
+    if native.available():
+        return native._lib
+    path = native._lib_path()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    for flags in (("-O3", "-march=native", "-shared", "-fPIC", "-fopenmp",
+                   "-std=c++17"), ("-O3", "-shared", "-fPIC", "-std=c++17")):
+        r = subprocess.run(["g++", *flags, native._SRC, "-o", tmp],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode == 0:
+            break
+    if r.returncode != 0:
+        raise RuntimeError(f"g++ failed on {native._SRC}: {r.stderr}")
+    os.replace(tmp, path)
+    native._tried = False
+    if not native.available():
+        raise RuntimeError(f"{path} does not load")
+    return native._lib
 
 
 def jax_sim(nx=5, ny=4, nz=3, minc=False):

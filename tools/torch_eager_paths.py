@@ -1,11 +1,12 @@
 """Times the port's eager GMRES / LGMRES / BiCGStab(l) paths on a CUDA
 card, for comparing two checkouts of the repository in one call.
 
-The runs are those of chip_smoke.py that no graph program covers:
-phase 11 (b) and (c) over 4 ranks sharing the card (gloo; the
-production field at 48 x 32 x 32 with asm and its GMRES tracer solves,
-and 49,152 wedges with lgmres + asm), each twice in one spawn, and on
-one rank, run eagerly (Simulation._eager_step) twice each, the first a
+The runs are phase 11 (b) and (c) of chip_smoke.py over 4 ranks
+sharing the card (gloo; the production field at 48 x 32 x 32 with asm
+and its GMRES tracer solves, and 49,152 wedges with lgmres + asm; no
+graph program covers ranks), each twice in one spawn, and on one rank,
+run eagerly (Simulation._eager_step; through graphs otherwise) twice
+each, the first a
 warm-up: phase 10 (b)'s 49,152 wedges with bcgsl + asm, phase 10 (d)'s
 tetrahedral box with lgmres + lu, phase 11 (c)'s wedges with lgmres +
 asm and phase 11 (b)'s field with asm (--profile: those named once

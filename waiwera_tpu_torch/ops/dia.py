@@ -32,6 +32,8 @@ import torch
 
 from waiwera_tpu_torch.solver.smallblocks import (
     apply_blocks_em,
+    batch_from_em,
+    em_from_batch,
     invert_blocks_em,
     matmul_em,
 )
@@ -483,13 +485,28 @@ def dia_dilu_em(m: DIAMatrix, sweeps: int = DILU_SWEEPS, dtype=None):
     return apply
 
 
+def _bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """a[l] @ v[l] for blocks a [p, b, b] and vectors v [p, b]: one
+    product and one sum over the whole batch."""
+    return (a * v.unsqueeze(-2)).sum(-1)
+
+
+def _bmm(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a[l] @ c[l] for blocks [p, b, b]."""
+    return (a.unsqueeze(-1) * c.unsqueeze(-3)).sum(-2)
+
+
 def dia_line_pc_em(m: DIAMatrix, dtype=None):
     """Exact block-tridiagonal line preconditioner along the outermost
     positive band with a negative partner (z in natural rectilinear
-    order; the JAX package's dia_line_pc_em). A block Thomas factorisation over the Z layers in the bands'
-    dtype, then per application a forward and a backward substitution,
-    each a Python loop over the Z layers vectorised over the p lines of
-    a layer. None when no +-offset pair exists."""
+    order; the JAX package's dia_line_pc_em). A block Thomas
+    factorisation over the Z layers in the bands' dtype, then per
+    application a forward and a backward substitution: the JAX
+    package's three lax.scans as Python loops over the Z layers, each
+    layer's block products batched over its p lines ([Z, p, b, b]
+    blocks: a product and a sum per block product, so that a layer is a
+    handful of kernels, which a CUDA graph replays). None when no
+    +-offset pair exists."""
     offs = [int(d) for d in m.offsets]
     pos = [d for d in offs if d > 0 and -d in offs]
     if not pos:
@@ -510,7 +527,8 @@ def dia_line_pc_em(m: DIAMatrix, dtype=None):
             else:
                 fill = x2.new_zeros((bb, npad - n))
             x2 = torch.cat([x2, fill], dim=1)
-        return x2.reshape(bb, Z, p).permute(1, 0, 2)  # [Z, bb, p]
+        # [Z, p, b, b]: the blocks of layer z, line l
+        return x2.reshape(bb, Z, p).permute(1, 2, 0).reshape(Z, p, b, b)
 
     d3 = pad3(m.bands[offs.index(0)], fill_eye=True)
     up3 = pad3(m.bands[offs.index(p)])  # A[(z,l),(z+1,l)] at layer z
@@ -518,13 +536,11 @@ def dia_line_pc_em(m: DIAMatrix, dtype=None):
 
     # block Thomas: W_z = (d_z - lo_z W_{z-1} up_{z-1})^-1
     W = []
-    w_prev = d3.new_zeros((bb, p))
     for z in range(Z):
         dmod = d3[z]
         if z > 0:
-            dmod = dmod - matmul_em(matmul_em(lo3[z], w_prev), up3[z - 1])
-        w_prev = invert_blocks_em(dmod)
-        W.append(w_prev)
+            dmod = dmod - _bmm(_bmm(lo3[z], W[-1]), up3[z - 1])
+        W.append(batch_from_em(invert_blocks_em(em_from_batch(dmod))))
     W3 = torch.stack(W)
     if dtype is not None:
         W3, lo3, up3 = W3.to(dtype), lo3.to(dtype), up3.to(dtype)
@@ -536,18 +552,13 @@ def dia_line_pc_em(m: DIAMatrix, dtype=None):
         r3 = rp.reshape(Z, p, b)
         # forward: y_z = W_z (r_z - lo_z y_{z-1})
         ys = []
-        y = None
         for z in range(Z):
-            rz = r3[z] if y is None else r3[z] - apply_blocks_em(lo3[z], y)
-            y = apply_blocks_em(W3[z], rz)
-            ys.append(y)
+            rz = r3[z] - _bmv(lo3[z], ys[-1]) if ys else r3[z]
+            ys.append(_bmv(W3[z], rz))
         # backward: x_z = y_z - W_z up_z x_{z+1}
-        xs = [None] * Z
-        x = ys[Z - 1]
-        xs[Z - 1] = x
+        xs = [ys[-1]]
         for z in range(Z - 2, -1, -1):
-            x = ys[z] - apply_blocks_em(W3[z], apply_blocks_em(up3[z], x))
-            xs[z] = x
-        return torch.cat(xs)[:n]
+            xs.append(ys[z] - _bmv(W3[z], _bmv(up3[z], xs[-1])))
+        return torch.cat(xs[::-1])[:n]
 
     return apply

@@ -10,8 +10,10 @@ where A_pp is block element (0, 0) of every band. The box [nz, ny, nx] is
 reconstructed from the band offsets {1, nx, nx*ny}; restriction and
 prolongation are 2x2x2 aggregate sums and repeats, Galerkin coarse
 operators come from masked aggregate sums of the bands, and the smoother
-is damped Jacobi. Everything is eager PyTorch: many small ops per
-V-cycle (no kernel of the JAX package is behind it).
+is damped Jacobi. Everything is plain PyTorch, many small ops per
+V-cycle (no kernel of the JAX package is behind it), with no host read:
+the levels are built inside a try's Jacobian piece and the V-cycle runs
+inside every application, replayed as CUDA graphs on the card.
 """
 
 from __future__ import annotations
@@ -152,8 +154,9 @@ def vcycle(levels, r: torch.Tensor) -> torch.Tensor:
     rc_p = rc.new_zeros(levels[1].d.shape)
     rc_p[:Zc, :Yc, :Xc] = rc
     zc = vcycle(levels[1:], rc_p)[:Zc, :Yc, :Xc]
-    z = z + ALPHA * zc.repeat_interleave(2, 0).repeat_interleave(
-        2, 1).repeat_interleave(2, 2)
+    # each coarse value repeated over its 2 x 2 x 2 aggregate
+    zf = zc[:, None, :, None, :, None].expand(Zc, 2, Yc, 2, Xc, 2)
+    z = z + ALPHA * zf.reshape(2 * Zc, 2 * Yc, 2 * Xc)
     return z + OMEGA * dinv * (r - _matvec(lv, z))
 
 

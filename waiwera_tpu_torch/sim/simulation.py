@@ -578,10 +578,11 @@ def step_program_mode(system: System, newton_params: NewtonParams) -> str:
     """"graph" where a try runs as replayed CUDA graphs, else "eager",
     from the configuration alone: a CUDA device, a one-rank System, any
     route (band, hybrid or ELL), a linear method of
-    newton.GRAPH_METHODS (bcgs, gmres, lgmres) and a preconditioner of
-    newton.GRAPH_PCS (none, jacobi, bjacobi, asm, ilu, dilu, sgs), or on
-    the ELL route line or cpr, which it replaces by block-Jacobi
-    (newton.program_covers). bcgsl, lu and ranks stay eager."""
+    newton.GRAPH_METHODS (bcgs, gmres, lgmres, bcgsl) and a
+    preconditioner of newton.GRAPH_PCS (every one the port takes: none,
+    jacobi, bjacobi, asm, ilu, dilu, sgs, line, cpr, lu)
+    (newton.program_covers). A distributed System (ranks) stays
+    eager."""
     covered = (system.mesh.is_ghost.device.type == "cuda"
                and program_covers(system, newton_params))
     return "graph" if covered else "eager"

@@ -10,10 +10,11 @@ chunk and the round's flags once per round. GMRES and LGMRES, as the
 JAX package's lax.fori_loop/while_loop, run each restart cycle as one
 piece (Arnoldi, the Hessenberg least squares by Givens rotations on the
 device, the update and the true residual), and the host reads the
-cycle test once per cycle. These pieces run through a
+cycle test once per cycle. BiCGStab(l), as the JAX package's
+lax.while_loop, runs its sweeps in masked chunks and the host reads
+(active, k) once per chunk. These pieces run through a
 solver.program.Program: eagerly, or replayed as CUDA graphs inside a
-Newton iteration or a tracer step. BiCGStab(l) runs in Python and
-copies a flag to the host at every sweep. The syncs are counted in
+Newton iteration or a tracer step. The syncs are counted in
 KrylovResult.host_syncs. Vectors are [N, b]; dot products reduce over
 everything. reduce_sum combines the partial reductions of a
 domain-decomposed vector across ranks (an all_reduce; the identity on
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from waiwera_tpu_torch.solver.program import Program, distinct
@@ -59,8 +59,9 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
 
 
 class _BiCGOps(NamedTuple):
-    """What the chunks of one solve share: the operator, the
-    preconditioner, the right-hand side and the tolerance."""
+    """What the chunks of one BiCGStab or BiCGStab(l) solve share: the
+    operator, the preconditioner, the right-hand side and the
+    tolerance."""
 
     matvec: Callable
     precond: Callable
@@ -517,61 +518,89 @@ def lgmres(
         basis_dtype=basis_dtype, reduce_sum=reduce_sum)
 
 
-def bicgstab_l(
-    matvec: Callable[[torch.Tensor], torch.Tensor],
-    b: torch.Tensor,
-    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-    rtol: float = DEFAULT_RTOL,
-    atol: float = DEFAULT_ATOL,
-    ell: int = 2,
-    max_iterations: int = 1000,
-    reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
-) -> KrylovResult:
-    """BiCGStab(l) (Sleijpen & Fokkema 1993), PETSc's KSPBCGSL, the
-    reference's linear type "bcgsl" (timestepper.F90:1735-1738), from
-    x = 0.
+class _BiCGLState(NamedTuple):
+    """BiCGStab(l)'s loop state, on the device: the JAX package's
+    while_loop carry and a flag."""
 
-    Each sweep does l BiCG steps and an l-dimensional minimal-residual
-    polynomial update. Right preconditioning runs the sweep on op = A∘M
-    and maps the accumulated update through M once at the end. The
-    convergence test of the recurrence residual before each sweep is
-    one host sync; a sweep is 2 l operator applications and counts l
-    iterations, as in the JAX package."""
-    if precond is None:
-        precond = lambda v: v  # noqa: E731
-    syncs = 0
-    matvecs = 0
+    y: torch.Tensor  # accumulated update, preconditioned space
+    R: torch.Tensor  # [ell + 1, N, b]
+    U: torch.Tensor  # [ell + 1, N, b]
+    rho0: torch.Tensor  # 0-d
+    alpha: torch.Tensor  # 0-d
+    omega: torch.Tensor  # 0-d
+    k: torch.Tensor  # 0-d int64, iterations (ell per sweep)
+    rnorm: torch.Tensor  # 0-d, recurrence residual norm
+    active: torch.Tensor  # 0-d bool: the next sweep runs
 
-    def op(v):
-        nonlocal matvecs
-        matvecs += 1
-        return matvec(precond(v))
 
-    L = int(ell)
-    tiny = torch.finfo(b.dtype).tiny
+class _BiCGStabL:
+    """The pieces of one BiCGStab(l) solve (Sleijpen & Fokkema 1993,
+    PETSc's KSPBCGSL), each a pure function of tensors with no host
+    read: the JAX package's lax.while_loop (cond and body) as chunks of
+    `sweeps` sweeps, each sweep's update masked by the state's `active`
+    (a sweep after convergence changes nothing)."""
 
-    def safe(v):
-        return torch.where(torch.abs(v) > tiny, v, tiny)
+    def __init__(self, ell, rtol, atol, max_iterations, reduce_sum, sweeps):
+        self.L = int(ell)
+        self.rtol = rtol
+        self.atol = atol
+        self.max_iterations = max_iterations
+        self.reduce_sum = reduce_sum
+        self.sweeps = sweeps
 
-    def dot(a, c):
-        return reduce_sum(_dot(a, c))
+    def dot(self, a, c):
+        return self.reduce_sum(_dot(a, c))
 
-    y = torch.zeros_like(b)  # accumulated update, preconditioned space
-    rshadow = b
-    tol = torch.clamp_min(rtol * torch.sqrt(dot(b, b)), atol)
-    R = [b] + [torch.zeros_like(b) for _ in range(L)]
-    U = [torch.zeros_like(b) for _ in range(L + 1)]
-    one = b.new_ones(())
-    rho0, alpha, omega = one, b.new_zeros(()), one
-    rnorm = torch.sqrt(dot(b, b))
-    k = 0
-    while True:
-        syncs += 1
-        rnorm_h, tol_h = torch.stack([rnorm, tol]).double().cpu().tolist()
-        if not (rnorm_h > tol_h and np.isfinite(rnorm_h)
-                and k < max_iterations):
-            break
-        rho0 = -omega * rho0
+    def cond(self, rnorm, tol, k):
+        return (rnorm > tol) & (k < self.max_iterations) & torch.isfinite(
+            rnorm)
+
+    def flags(self, st: _BiCGLState, tol) -> torch.Tensor:
+        """[active, k, converged] as int64: the host's one read."""
+        conv = (st.rnorm <= tol) & torch.isfinite(st.rnorm)
+        return torch.stack([st.active.long(), st.k, conv.long()])
+
+    def start(self, setup, *args):
+        """setup(*args) -> (matvec, precond, b); then the carried state
+        at x = 0 and the first test."""
+        matvec, precond, b = setup(*args)
+        if precond is None:
+            precond = _identity
+        rnorm = torch.sqrt(self.dot(b, b))
+        tol = torch.clamp_min(self.rtol * rnorm, self.atol)
+        ops = _BiCGOps(matvec, precond, b, tol)
+        R = b.new_zeros((self.L + 1,) + tuple(b.shape))
+        R[0] = b
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
+        st = _BiCGLState(
+            y=torch.zeros_like(b), R=R, U=torch.zeros_like(R),
+            rho0=b.new_ones(()), alpha=b.new_zeros(()),
+            omega=b.new_ones(()), k=k, rnorm=rnorm,
+            active=self.cond(rnorm, tol, k))
+        return ops, distinct(st), self.flags(st, tol)
+
+    def chunk(self, st: _BiCGLState, ops: _BiCGOps):
+        """One chunk: `sweeps` sweeps, each masked by st.active."""
+        for _ in range(self.sweeps):
+            st = self.sweep(st, ops)
+        return st, self.flags(st, ops.tol)
+
+    def sweep(self, st: _BiCGLState, ops: _BiCGOps) -> _BiCGLState:
+        """The JAX package's body: ell BiCG steps on op = A∘M, then the
+        ell-dimensional minimal-residual update; kept where st.active."""
+        L, dot = self.L, self.dot
+        tiny = torch.finfo(ops.b.dtype).tiny
+
+        def safe(v):
+            return torch.where(torch.abs(v) > tiny, v, tiny)
+
+        def op(v):
+            return ops.matvec(ops.precond(v))
+
+        rshadow = ops.b  # the shadow residual: b, from x = 0
+        y, alpha, omega = st.y, st.alpha, st.omega
+        R, U = list(st.R.unbind(0)), list(st.U.unbind(0))
+        rho0 = -omega * st.rho0
         # BiCG part
         for j in range(L):
             rho1 = dot(R[j], rshadow)
@@ -614,13 +643,77 @@ def bicgstab_l(
             U[0] = U[0] - gam[j] * U[j]
             y = y + gam_pp[j] * R[j]
             R[0] = R[0] - gam_p[j] * R[j]
-        k += L
-        rnorm = torch.sqrt(dot(R[0], R[0]))
-    converged = bool(rnorm_h <= tol_h and np.isfinite(rnorm_h))
+
+        on = st.active
+
+        def keep(new, old):
+            return torch.where(on, new, old)
+
+        k = st.k + L * on.long()
+        rnorm = keep(torch.sqrt(dot(R[0], R[0])), st.rnorm)
+        return _BiCGLState(
+            y=keep(y, st.y), R=keep(torch.stack(R), st.R),
+            U=keep(torch.stack(U), st.U), rho0=keep(rho0, st.rho0),
+            alpha=keep(alpha, st.alpha), omega=keep(omega, st.omega), k=k,
+            rnorm=rnorm, active=on & self.cond(rnorm, ops.tol, k))
+
+
+def bicgstab_l_solve(program: Program, setup: Callable, *args, ell: int = 2,
+                     max_iterations: int = 1000,
+                     rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL,
+                     reduce_sum: Callable = _identity,
+                     name: str = "bicgstabl") -> KrylovResult:
+    """BiCGStab(l) (Sleijpen & Fokkema 1993), PETSc's KSPBCGSL, the
+    reference's linear type "bcgsl" (timestepper.F90:1735-1738), for
+    A x = b from x = 0, where (matvec, precond, b) = setup(*args) is
+    evaluated inside the solve's first piece (so that a Newton iteration
+    can put its Jacobian there).
+
+    Each sweep does l BiCG steps and an l-dimensional minimal-residual
+    polynomial update, and counts l iterations, as in the JAX package.
+    Right preconditioning runs the sweep on op = A∘M and maps the
+    accumulated update through M once, in a last piece. The sweeps run
+    in chunks of max(1, CHUNK // ell) (about as many operator
+    applications as a BiCGStab chunk), masked after convergence.
+    Host reads: one at the start and one per chunk; matvecs 2 ell per
+    sweep run, masked included."""
+    solver = _BiCGStabL(ell, rtol, atol, max_iterations, reduce_sum,
+                        max(1, CHUNK // int(ell)))
+    syncs0 = program.host_syncs
+    ops, st, flags = program.run(
+        f"{name}.start", lambda *a: solver.start(setup, *a), *args)
+    active, k, conv = program.read(flags)
+    chunks = 0
+    while active:
+        st, flags = program.loop(f"{name}.chunk", solver.chunk, st, ops)
+        active, k, conv = program.read(flags)
+        chunks += 1
+    x = program.run(f"{name}.finish", lambda st, ops: ops.precond(st.y),
+                    st, ops)
+    swept = chunks * solver.sweeps
     return KrylovResult(
-        x=precond(y), iterations=k, residual_norm=rnorm,
-        converged=converged, host_syncs=syncs, matvecs=matvecs,
+        x=x, iterations=k, residual_norm=st.rnorm, converged=bool(conv),
+        host_syncs=program.host_syncs - syncs0,
+        matvecs=2 * solver.L * swept,
+        masked_iterations=solver.L * swept - k,
     )
+
+
+def bicgstab_l(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    rtol: float = DEFAULT_RTOL,
+    atol: float = DEFAULT_ATOL,
+    ell: int = 2,
+    max_iterations: int = 1000,
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+) -> KrylovResult:
+    """BiCGStab(l) from x = 0, run eagerly (bicgstab_l_solve)."""
+    return bicgstab_l_solve(
+        Program(), lambda: (matvec, precond, b), ell=ell,
+        max_iterations=max_iterations, rtol=rtol, atol=atol,
+        reduce_sum=reduce_sum)
 
 
 def max_restarts(max_iterations: int, restart: int) -> int:

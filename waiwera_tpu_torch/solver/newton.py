@@ -22,12 +22,13 @@ ending in flags the host reads once:
   iteration).
 The monitor's values ride on the reads. GMRES and LGMRES take (b) and
 (c) as their start and cycle pieces (krylov.gmres_solve,
-krylov.lgmres_solve: one read at the start and one per cycle). A
-Program runs the pieces eagerly or replays them as CUDA graphs
-(Simulation.make_step_fn picks it from the configuration,
-program_covers); BiCGStab(l) and the lu preconditioner run their own
-host reads and so only in an eager program. The host syncs are counted
-in NewtonResult.host_syncs.
+krylov.lgmres_solve: one read at the start and one per cycle),
+BiCGStab(l) as its start and chunk pieces (krylov.bicgstab_l_solve: one
+read at the start and one per chunk). A Program runs the pieces eagerly
+or replays them as CUDA graphs (Simulation.make_step_fn picks it from
+the configuration, program_covers: every linear method and
+preconditioner on one rank). The host syncs are counted in
+NewtonResult.host_syncs.
 """
 
 from __future__ import annotations
@@ -42,12 +43,14 @@ from waiwera_tpu_torch.solver.system import MethodCoeffs, System
 
 
 # what a graph program covers: the linear methods whose loops run as
-# device pieces, the preconditioners whose set-up and application hold
-# no host read, and those that the ELL route (meshes with no band
-# structure) replaces by block-Jacobi (precond.make_preconditioner)
-GRAPH_METHODS = ("bcgs", "gmres", "lgmres")
-GRAPH_PCS = ("none", "jacobi", "bjacobi", "asm", "ilu", "dilu", "sgs")
-ELL_GRAPH_PCS = ("line", "zline", "cpr", "cprmg")
+# device pieces (by the reference's KSP names and their aliases) and the
+# preconditioners whose set-up and application hold no host read: every
+# name System.linear_operator_from_parts and precond.make_preconditioner
+# take, on every route
+GRAPH_METHODS = ("bcgs", "bicgstab", "gmres", "lgmres", "bcgsl",
+                 "bicgstabl")
+GRAPH_PCS = ("none", "jacobi", "bjacobi", "asm", "ilu", "dilu", "sgs",
+             "line", "zline", "cpr", "cprmg", "lu")
 
 
 class NewtonParams(NamedTuple):
@@ -266,45 +269,40 @@ def _flags(values) -> torch.Tensor:
 def program_covers(system: System, params: "NewtonParams") -> bool:
     """Whether every piece of a try under `params` can run as a CUDA
     graph: a one-rank System, a linear method of GRAPH_METHODS and a
-    preconditioner of GRAPH_PCS (or of ELL_GRAPH_PCS on the ELL
-    route)."""
-    pc = params.linear_pc
+    preconditioner of GRAPH_PCS. A distributed System runs eagerly (its
+    collectives: ROADMAP A18.5)."""
     return (not system.distributed
             and params.linear_method in GRAPH_METHODS
-            and (pc in GRAPH_PCS
-                 or (system.bands is None and pc in ELL_GRAPH_PCS)))
+            and params.linear_pc in GRAPH_PCS)
 
 
 def _linear_solve(program, newton, st, rock, coeffs, t0, t1):
-    """(c): the Krylov solve of one Newton iteration, its set-up
-    (newton.operator) inside its first piece where the method runs as
-    pieces."""
+    """(c): the Krylov solve of one Newton iteration as pieces, its
+    set-up (newton.operator) inside its first piece."""
     system, p = newton.system, newton.params
     kw = dict(rtol=p.linear_rtol, reduce_sum=system.reduce_sum,
               name="newton.krylov")
     args = (st, rock, coeffs, t0, t1)
-    if p.linear_method == "bcgs":
+    method = p.linear_method
+    if method in ("bcgs", "bicgstab"):
         return krylov.bicgstab_solve(
             program, newton.operator, *args,
             max_iterations=p.linear_max_iterations, **kw)
-    if p.linear_method in ("gmres", "lgmres"):
-        max_restarts = krylov.max_restarts(p.linear_max_iterations,
-                                           p.linear_restart)
-        if p.linear_method == "gmres":
-            return krylov.gmres_solve(
-                program, newton.operator, *args, restart=p.linear_restart,
-                max_restarts=max_restarts, **kw)
+    if method in ("bcgsl", "bicgstabl"):
+        return krylov.bicgstab_l_solve(
+            program, newton.operator, *args, ell=p.linear_ell,
+            max_iterations=p.linear_max_iterations, **kw)
+    max_restarts = krylov.max_restarts(p.linear_max_iterations,
+                                       p.linear_restart)
+    if method == "gmres":
+        return krylov.gmres_solve(
+            program, newton.operator, *args, restart=p.linear_restart,
+            max_restarts=max_restarts, **kw)
+    if method == "lgmres":
         return krylov.lgmres_solve(
             program, newton.operator, *args, restart=p.linear_restart,
             augment=p.linear_augment, max_restarts=max_restarts, **kw)
-    mv, pc, b = newton.operator(*args)
-    lin = krylov.solve(
-        p.linear_method, mv, b, precond=pc, rtol=p.linear_rtol,
-        max_iterations=p.linear_max_iterations, restart=p.linear_restart,
-        augment=p.linear_augment, ell=p.linear_ell,
-        reduce_sum=system.reduce_sum)
-    program.host_syncs += lin.host_syncs
-    return lin
+    raise ValueError(f"unknown linear solver: {method!r}")
 
 
 def newton_solve(
@@ -337,9 +335,11 @@ def newton_solve(
     if program is None:
         program = Program()
     if program.mode != "eager" and not program_covers(system, params):
+        why = ("a distributed System runs eagerly only"
+               if system.distributed else "unknown to the port")
         raise ValueError(
             f"graph program: linear method {params.linear_method!r} with "
-            f"preconditioner {params.linear_pc!r} runs eagerly only")
+            f"preconditioner {params.linear_pc!r}: {why}")
     newton = _Newton(system, params)
     p = params
     syncs0 = program.host_syncs

@@ -153,11 +153,25 @@ def dilu(matrix: BSRMatrix, split: ILU0Data, sweeps: int = 3, dtype=None):
     return apply
 
 
-def lu(matrix: BSRMatrix, dtype=None):
+def dense_positions(structure: BSRStructure, device="cpu") -> torch.Tensor:
+    """[nnzb] int64: the position row * n + col of each stored block in
+    the [n * n] grid of blocks (lu's densification), built once on the
+    host. No position repeats (build_structure merges the faces of one
+    cell pair), so writing the blocks there is exact, in a fixed order."""
+    s = structure
+    pos = np.asarray(s.rows, np.int64) * s.num_rows + np.asarray(s.indices,
+                                                                 np.int64)
+    return torch.as_tensor(pos, device=device)
+
+
+def lu(matrix: BSRMatrix, dtype=None, positions=None):
     """Direct dense LU preconditioner (the reference's PCLU option,
-    timestepper.F90:1823-1829): the matrix densified [n*b, n*b] and
-    factorised once per Jacobian in its own dtype; refused above
-    LU_MAX_UNKNOWNS unknowns."""
+    timestepper.F90:1823-1829): the matrix densified [n*b, n*b] at
+    `positions` (dense_positions; built here when None) and factorised
+    once per Jacobian in its own dtype by torch.linalg.lu_factor_ex,
+    whose `info` is not read (the JAX package checks nothing either: a
+    singular factor shows as a non-finite update, which Newton's flags
+    catch); refused above LU_MAX_UNKNOWNS unknowns."""
     s = matrix.structure
     n, b = s.num_rows, s.block_size
     nd = n * b
@@ -166,13 +180,12 @@ def lu(matrix: BSRMatrix, dtype=None):
             f"lu preconditioner: system too large ({nd} dof > 20000); "
             "use bjacobi/asm/ilu"
         )
-    dev = matrix.data.device
-    dense = matrix.data.new_zeros((n, n, b, b))
-    dense.index_put_((torch.as_tensor(s.rows, device=dev),
-                      torch.as_tensor(s.indices, device=dev)),
-                     matrix.data, accumulate=True)
-    dense = dense.permute(0, 2, 1, 3).reshape(nd, nd)
-    lu_fac, piv = torch.linalg.lu_factor(dense)
+    if positions is None:
+        positions = dense_positions(s, matrix.data.device)
+    dense = matrix.data.new_zeros((n * n, b, b))
+    dense[positions] = matrix.data
+    dense = dense.reshape(n, n, b, b).permute(0, 2, 1, 3).reshape(nd, nd)
+    lu_fac, piv, _ = torch.linalg.lu_factor_ex(dense)
     if dtype is not None:
         lu_fac = lu_fac.to(dtype)
 
@@ -186,17 +199,18 @@ def lu(matrix: BSRMatrix, dtype=None):
 
 def make_preconditioner(name: str, matrix: BSRMatrix,
                         split: Optional[ILU0Data] = None, sweeps: int = 3,
-                        dtype=None):
+                        dtype=None, positions=None):
     """PC factory by the reference's JSON names (timestepper.F90:
     1743-1835): bjacobi, asm/ilu/dilu/sgs (the data-parallel DILU), lu
-    (dense direct, small systems), none; line and cpr need the banded
-    layout and fall back to block-Jacobi on unstructured BSR."""
+    (dense direct, small systems; positions: its dense_positions), none;
+    line and cpr need the banded layout and fall back to block-Jacobi on
+    unstructured BSR."""
     if name == "none":
         return lambda r: r
     if name in ("bjacobi", "jacobi", "line", "zline", "cpr", "cprmg"):
         return block_jacobi(matrix, dtype=dtype)
     if name == "lu":
-        return lu(matrix, dtype=dtype)
+        return lu(matrix, dtype=dtype, positions=positions)
     if name in ("asm", "ilu", "dilu", "sgs"):
         if split is None:
             split = ilu0_split(matrix.structure, device=matrix.data.device)

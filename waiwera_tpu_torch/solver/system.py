@@ -153,6 +153,12 @@ class System:
                             device=self.mesh.is_ghost.device)
 
     @cached_property
+    def lu_positions(self) -> torch.Tensor:
+        """precond.lu's densifying positions for this mesh, built once."""
+        return precond.dense_positions(self.structure,
+                                       device=self.mesh.is_ghost.device)
+
+    @cached_property
     def ell_tables(self) -> ell.ELLStructure:
         return ell.ell_structure(self.structure,
                                  device=self.mesh.is_ghost.device)
@@ -437,8 +443,10 @@ class System:
         mv = ell.to_ell(mat, self.ell_tables, dtype).matvec
         split = (self.ilu_split if pc_name in ("asm", "ilu", "dilu", "sgs")
                  else None)
+        positions = self.lu_positions if pc_name == "lu" else None
         return mv, precond.make_preconditioner(
-            pc_name, mat, split=split, sweeps=sweeps, dtype=dtype)
+            pc_name, mat, split=split, sweeps=sweeps, dtype=dtype,
+            positions=positions)
 
     def linear_operator_from_parts(self, parts, pc_name: str, dtype=None,
                                    sweeps: int = dia.DILU_SWEEPS):
@@ -495,7 +503,8 @@ class System:
         elif pc_name in ("asm", "ilu", "dilu", "sgs"):
             pc = dia.dia_dilu_em(m64, sweeps=sweeps, dtype=dtype)
         elif pc_name == "lu":
-            pc = precond.lu(self.assemble_bsr(parts), dtype=dtype)
+            pc = precond.lu(self.assemble_bsr(parts), dtype=dtype,
+                            positions=self.lu_positions)
         else:
             raise ValueError(f"unknown preconditioner: {pc_name!r}")
         return mv, pc
