@@ -195,9 +195,10 @@ Phases (any failure raises and the exit code is nonzero):
    LGMRES cycles, each with the medians of the timed rounds (graph
    replays against eager runs), their ratio, and the first runs apart,
    with the card's name and power limit; then one more
-   run in each mode with every piece timed by CUDA events, the graph
-   run under torch.profiler (the device's busy seconds and share of the
-   wall, the kernels by device time); then PyTorch's row gathers
+   run in each mode under torch.profiler, each piece's device time read
+   from the port's spans (piece_split), the graph run's with the
+   device's busy seconds and share of the wall and the kernels by
+   device time; then PyTorch's row gathers
    (x[index], index_select) against ops/segment.py RowGather at the
    Krylov loops' shapes (ROW_GATHER_SHAPES), equal bit for bit, timed in
    turns. (g) from (a)'s settled flagship, one step with line and one
@@ -2468,29 +2469,36 @@ def graph_flagship(log=log, rounds=GRAPH_ROUNDS):
     return rec, sim, settled
 
 
-def piece_split(timing):
-    """(piece, start, end) CUDA events -> {piece: {"ms", "n"}}."""
-    pieces = {}
-    for name, start, end in timing:
-        ms, n = pieces.get(name, (0.0, 0))
-        pieces[name] = (ms + start.elapsed_time(end), n + 1)
-    return {k: {"ms": ms, "n": n} for k, (ms, n) in pieces.items()}
+def piece_split(prof):
+    """{piece: {"ms", "n"}}: each piece's device ms (the union of the
+    intervals of the device ops its launches made) and its launches, in
+    a torch.profiler trace of the card (perfbench/lib/spans.py)."""
+    from torch.autograd import DeviceType
+
+    from perfbench.lib import spans
+
+    res = spans.split(prof.profiler.kineto_results.events(), DeviceType.CUDA)
+    return {k: {"ms": 1e3 * v["device_s"], "n": v["launches"]}
+            for k, v in res["pieces"].items()}
 
 
 def step_split(step, call):
-    """One step's time by piece (CUDA events around each piece: a
-    graph's replay, or an eager piece with its host dispatch gaps; ms
-    and count per piece) against its host-clock wall. Through the graph
-    program their sum over the wall is the device's busy share of the
-    step (a replay holds no host gap)."""
-    step.timing = []
+    """One step's device time by piece (piece_split of the step under
+    torch.profiler: ms and launches per piece) against the host-clock
+    wall of the same step run without the profiler. Their sum over the
+    wall is the device's busy share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     call(step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    pieces = piece_split(step.timing)
-    step.timing = None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call(step)
+        torch.cuda.synchronize()
+    pieces = piece_split(prof)
     busy = sum(p["ms"] for p in pieces.values()) / 1e3
     return {"wall_s": wall, "pieces_s": busy, "pieces_share": busy / wall,
             "pieces": pieces}
@@ -2703,7 +2711,7 @@ def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
     for mode, sim in sims.items():
         if sim.device.type == "cuda" and mode in split:
             # the kernel table of the graph run only: the same kernels
-            # run eagerly, and a profile of the eager run costs ~30 s
+            # run eagerly
             runs[mode + "_split"] = profiled_run(sim, config,
                                                  profile=mode == "graph")
     for mode in ("graph", "eager"):
@@ -2713,9 +2721,10 @@ def graph_model_turns(config, label, log=log, rounds=GRAPH_MODEL_ROUNDS,
     return runs
 
 
-def kernel_profile(fn, top=12):
+def kernel_profile(fn, top=12, kernels=True):
     """fn() once under torch.profiler (CPU and CUDA activities): its wall
-    (host clock, the card synchronised), the device's busy seconds (the
+    (host clock, the card synchronised) and each piece's device ms and
+    launches (piece_split); with kernels, the device's busy seconds (the
     sum of the kernels' self device time) and share of the wall, and the
     `top` kernels by device time (name, calls, ms). Returns (fn's value,
     record)."""
@@ -2729,33 +2738,34 @@ def kernel_profile(fn, top=12):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "pieces": piece_split(prof)}
+    if not kernels:
+        return out, rec
+    # the device side of the port's spans is no kernel
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     kern.sort(key=lambda e: -e.self_device_time_total)
     return out, {
-        "wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+        **rec, "device_busy_s": busy, "busy_share": busy / wall,
         "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3)
                 for e in kern[:top]]}
 
 
 def profiled_run(sim, config, profile=True):
-    """One more Timestepper run of `config` on `sim`, each piece of its
-    tries and tracer steps timed with CUDA events, with profile the run
-    under kernel_profile: {"pieces", "run_loop_s"(, "profile")}."""
+    """One more Timestepper run of `config` on `sim` under kernel_profile
+    (with profile, its kernel table too): {"pieces" (the device ms and
+    launches of each piece of its tries and tracer steps), "run_loop_s"
+    (, "profile")}."""
     from waiwera_tpu_torch.sim.timestepper import Timestepper
 
     ts = Timestepper(json.loads(json.dumps(config)), sim, logger=_QuietLog())
-    for fn in (ts.step_fn, ts.tracer_step_fn):
-        if fn is not None:
-            fn.timing = []
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        ok, prof = kernel_profile(ts.run) if profile else (ts.run(), None)
+        ok, prof = kernel_profile(ts.run, kernels=profile)
     if not ok:
         raise RuntimeError("phase 12: the profiled run aborted")
-    timing = ts.step_fn.timing + (ts.tracer_step_fn.timing
-                                  if ts.tracer_step_fn is not None else [])
-    out = {"pieces": piece_split(timing),
+    out = {"pieces": prof.pop("pieces"),
            "run_loop_s": sum(ts.stats["step_seconds"])}
     if profile:
         out["profile"] = prof

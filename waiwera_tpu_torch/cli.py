@@ -48,7 +48,9 @@ def _profiled(run, profile_dir: str):
     """run() under torch.profiler (CPU and, where there is one, CUDA
     activity), with a Chrome trace written into profile_dir (the
     reference's -log_view analogue; open it in chrome://tracing or
-    Perfetto)."""
+    Perfetto). The trace holds the port's spans (utils/spans.py): each
+    try, output record, Newton loop, and each piece's launch, flag read
+    and capture."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,7 +218,10 @@ def main(argv=None):
     parser.add_argument(
         "--profile", default=None, metavar="DIR",
         help="write a torch.profiler Chrome trace of the run to "
-        "DIR/trace.json (the -log_view analogue)",
+        "DIR/trace.json (the -log_view analogue), with the port's spans: "
+        "timestepper.try, timestepper.output, newton.solve, "
+        "program.launch:<piece>, program.read:<piece>, program.stage, "
+        "program.hand_out and program.capture:<piece>",
     )
     parser.add_argument(
         "--set", action="append", default=[], metavar="PATH=VALUE",

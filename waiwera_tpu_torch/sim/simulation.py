@@ -661,15 +661,11 @@ def step_function(system: System, rock: RockState,
             prog.stage("try", (
                 y, region, temperature, rock if rock_in is None else rock_in,
                 lhs_last, coeffs, t0, t0 + dt, initial))
-        prog.timing = step.timing
-        try:
-            res = newton_solve(
-                system, y, region, temperature, rock_t, coeffs, t0, t1,
-                lhs_scale=lhs_last, params=newton_params, initial=initial,
-                program=prog,
-            )
-        finally:
-            prog.timing = None
+        res = newton_solve(
+            system, y, region, temperature, rock_t, coeffs, t0, t1,
+            lhs_scale=lhs_last, params=newton_params, initial=initial,
+            program=prog,
+        )
         for k, v in _program_stats(prog).items():
             totals[k] += v - before[k]
         fluid, lhs_new, fluxes = res.fluid, res.lhs, res.fluxes
@@ -683,7 +679,6 @@ def step_function(system: System, rock: RockState,
 
     step.program_mode = mode
     step.stats = stats
-    step.timing = None  # a list: the pieces' CUDA events (Program.timing)
     return step
 
 
@@ -708,9 +703,8 @@ def tracer_step_function(tracers, mesh, rock, network, npv: int,
     (a one-rank System, tracer_program_mode) and eager false, the pieces
     are captured as CUDA graphs at the first step and replayed, in the
     System's graph pool, one program per use_bdf2; `tracer_step.
-    program_mode` says which, `tracer_step.stats()` counts captures,
-    their seconds and replays, and `tracer_step.timing` (a list, or
-    None) collects each piece's CUDA events (Program.timing)."""
+    program_mode` says which and `tracer_step.stats()` counts captures,
+    their seconds and replays."""
     from waiwera_tpu_torch.sim import tracer as tracer_mod
     from waiwera_tpu_torch.solver import krylov
     from waiwera_tpu_torch.solver.program import Program
@@ -769,20 +763,15 @@ def tracer_step_function(tracers, mesh, rock, network, npv: int,
                       for v in (t0, t1, dt, dt_last, first))
         args = prog.stage("tracer", (fluid, fluxes, x_last, al_last,
                                      x_last2, al_last2) + times)
-        prog.timing = tracer_step.timing
-        try:
-            al = prog.run("tracer.balance", balance, args[0])
-            res = krylov.gmres_solve(
-                prog, setup, *args, al, bool(use_bdf2), rtol=tracer_mod.RTOL,
-                max_restarts=krylov.max_restarts(
-                    tracer_mod.MAX_ITERATIONS, tracer_mod.GMRES_RESTART),
-                restart=tracer_mod.GMRES_RESTART, basis_dtype=basis_dtype,
-                name="tracer.gmres", **solve_kw)
-            x = res.x if sync is None else prog.run("tracer.sync", sync,
-                                                    res.x)
-            x, al = prog.hand_out((x, al))
-        finally:
-            prog.timing = None
+        al = prog.run("tracer.balance", balance, args[0])
+        res = krylov.gmres_solve(
+            prog, setup, *args, al, bool(use_bdf2), rtol=tracer_mod.RTOL,
+            max_restarts=krylov.max_restarts(
+                tracer_mod.MAX_ITERATIONS, tracer_mod.GMRES_RESTART),
+            restart=tracer_mod.GMRES_RESTART, basis_dtype=basis_dtype,
+            name="tracer.gmres", **solve_kw)
+        x = res.x if sync is None else prog.run("tracer.sync", sync, res.x)
+        x, al = prog.hand_out((x, al))
         for k, v in _program_stats(prog).items():
             totals[k] += v - before[k]
         return tracer_mod.TracerResult(
@@ -796,7 +785,6 @@ def tracer_step_function(tracers, mesh, rock, network, npv: int,
 
     tracer_step.program_mode = mode
     tracer_step.stats = stats
-    tracer_step.timing = None  # a list: the pieces' CUDA events
     return tracer_step
 
 

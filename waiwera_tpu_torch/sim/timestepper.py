@@ -19,7 +19,9 @@ The loop itself crosses to the host once per try (the residual norm and
 its location for the log), once per accepted step under the `change`
 monitor, and once per written output field; Timestepper.stats counts
 these beside the step function's own syncs, and the tracer solves'
-syncs, iterations and seconds.
+syncs, iterations and seconds. Under a profiler each try is the span
+timestepper.try and each output record timestepper.output
+(utils/spans.py).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from waiwera_tpu_torch.solver.newton import NewtonParams
 from waiwera_tpu_torch.utils.logging import Logger
+from waiwera_tpu_torch.utils.spans import span
 
 # timestep statuses (timestepper.F90:33-44)
 OK = "OK"
@@ -467,45 +470,49 @@ class Timestepper:
                     step_kwargs = dict(
                         fluid_last=fluid, fluxes_last=fluxes_carr
                     )
-                res, new_fluid, lhs_new, fluxes = self.step_fn(
-                    y,
-                    region,
-                    temperature,
-                    lhs,
-                    lhs_last2,
-                    t,
-                    dt,
-                    dt_last,
-                    1.0 if self.taken == 0 else 0.0,
-                    **step_kwargs,
-                )
-                num_tries += 1
-                converged = bool(res.converged) and not bool(res.failed)
-                its = int(res.iterations)
-                tres = None
-                if converged and self.tracer_step_fn is not None:
-                    # auxiliary (tracer) linear solve of this try
-                    # (timestepper.F90:2347-2356); a failure retries the
-                    # step like a nonlinear failure
-                    tr_wall0 = _walltime.time()
-                    tres = self.tracer_step_fn(
-                        new_fluid, fluxes, aux_x, aux_al, aux_x2, aux_al2,
-                        t, t_try, dt, dt_last,
+                # one try under a profiler (utils/spans.py): the step
+                # function, the tracer solve and the residual report
+                with span("timestepper.try", lambda: (
+                        f"step {self.taken} try {num_tries + 1} dt {dt!r}")):
+                    res, new_fluid, lhs_new, fluxes = self.step_fn(
+                        y,
+                        region,
+                        temperature,
+                        lhs,
+                        lhs_last2,
+                        t,
+                        dt,
+                        dt_last,
                         1.0 if self.taken == 0 else 0.0,
-                        self.method == "bdf2",
+                        **step_kwargs,
                     )
-                    stats_run["tracer_seconds"] += (_walltime.time()
-                                                    - tr_wall0)
-                    stats_run["tracer_iterations"].append(tres.iterations)
-                    stats_run["tracer_converged"].append(tres.converged)
-                    stats_run["host_syncs_tracer"] += tres.host_syncs
-                    if not tres.converged:
-                        log.write("warn", "tracer_solver", "not_converged",
-                                  iterations=int(tres.iterations))
-                        converged = False
-                max_residual, worst_cell, worst_equation = (
-                    self._residual_report(res)
-                )
+                    num_tries += 1
+                    converged = bool(res.converged) and not bool(res.failed)
+                    its = int(res.iterations)
+                    tres = None
+                    if converged and self.tracer_step_fn is not None:
+                        # auxiliary (tracer) linear solve of this try
+                        # (timestepper.F90:2347-2356); a failure retries the
+                        # step like a nonlinear failure
+                        tr_wall0 = _walltime.time()
+                        tres = self.tracer_step_fn(
+                            new_fluid, fluxes, aux_x, aux_al, aux_x2, aux_al2,
+                            t, t_try, dt, dt_last,
+                            1.0 if self.taken == 0 else 0.0,
+                            self.method == "bdf2",
+                        )
+                        stats_run["tracer_seconds"] += (_walltime.time()
+                                                        - tr_wall0)
+                        stats_run["tracer_iterations"].append(tres.iterations)
+                        stats_run["tracer_converged"].append(tres.converged)
+                        stats_run["host_syncs_tracer"] += tres.host_syncs
+                        if not tres.converged:
+                            log.write("warn", "tracer_solver", "not_converged",
+                                      iterations=int(tres.iterations))
+                            converged = False
+                    max_residual, worst_cell, worst_equation = (
+                        self._residual_report(res)
+                    )
                 stats_run["tries"] += 1
                 stats_run["newton_iterations"] += its
                 stats_run["linear_iterations"] += int(res.linear_iterations)
@@ -774,6 +781,10 @@ class Timestepper:
         the source and network fields over [t0, t0 + dt] and, where flux
         output is on, the face fluxes brought into the host mesh's face
         order."""
+        with span("timestepper.output"):
+            self._write_record(t, fluid, t0, dt, flux_dev, aux_x)
+
+    def _write_record(self, t, fluid, t0, dt, flux_dev, aux_x):
         w0 = _walltime.time()
         tg = getattr(self.sim, "to_global", None)
         if tg is not None:

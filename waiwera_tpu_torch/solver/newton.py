@@ -14,21 +14,23 @@ The JAX package runs the loop as one lax.while_loop on the device. Here
 the host runs it over device-only pieces (solver/program.py), each
 ending in flags the host reads once:
 - (a) the start: the residual at y0 and its flags (one read);
-- (b) the Jacobian parts, the operator and preconditioner and the first
-  BiCGStab chunk, then (c) the further chunks and rounds (one read per
-  chunk and per round; krylov.bicgstab_solve);
+- (b) the Jacobian parts, the operator and the preconditioner (the
+  piece newton.jacobian, no read), then (c) the Krylov solve on them:
+  its start with the first BiCGStab chunk, the further chunks and rounds
+  (one read per chunk and per round; krylov.bicgstab_solve);
 - (d) the update, transitions, bounds check, the residual at the new
   iterate and the convergence and failure flags (one read per
   iteration).
-The monitor's values ride on the reads. GMRES and LGMRES take (b) and
-(c) as their start and cycle pieces (krylov.gmres_solve,
+The monitor's values ride on the reads. GMRES and LGMRES take (c) as
+their start and cycle pieces (krylov.gmres_solve,
 krylov.lgmres_solve: one read at the start and one per cycle),
 BiCGStab(l) as its start and chunk pieces (krylov.bicgstab_l_solve: one
 read at the start and one per chunk). A Program runs the pieces eagerly
 or replays them as CUDA graphs (Simulation.make_step_fn picks it from
 the configuration, program_covers: every linear method and
 preconditioner on one rank). The host syncs are counted in
-NewtonResult.host_syncs.
+NewtonResult.host_syncs. Under a profiler the host loop is the span
+newton.solve (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 from waiwera_tpu_torch.solver import krylov
 from waiwera_tpu_torch.solver.program import Program, distinct
 from waiwera_tpu_torch.solver.system import MethodCoeffs, System
+from waiwera_tpu_torch.utils.spans import span
 
 
 # what a graph program covers: the linear methods whose loops run as
@@ -276,31 +279,41 @@ def program_covers(system: System, params: "NewtonParams") -> bool:
             and params.linear_pc in GRAPH_PCS)
 
 
+def _operator_of(matvec, precond, b):
+    """The Krylov set-up of a Newton iteration, as the piece
+    newton.jacobian computed it."""
+    return matvec, precond, b
+
+
 def _linear_solve(program, newton, st, rock, coeffs, t0, t1):
-    """(c): the Krylov solve of one Newton iteration as pieces, its
-    set-up (newton.operator) inside its first piece."""
+    """(b) and (c): the piece newton.jacobian (newton.operator: the
+    Jacobian, the operator and the preconditioner), then the Krylov solve
+    of one Newton iteration as pieces on what it returned. No host read
+    sits between the two, so the solve's first piece is queued while the
+    Jacobian runs."""
     system, p = newton.system, newton.params
     kw = dict(rtol=p.linear_rtol, reduce_sum=system.reduce_sum,
               name="newton.krylov")
-    args = (st, rock, coeffs, t0, t1)
+    args = program.run("newton.jacobian", newton.operator, st, rock, coeffs,
+                       t0, t1)
     method = p.linear_method
     if method in ("bcgs", "bicgstab"):
         return krylov.bicgstab_solve(
-            program, newton.operator, *args,
+            program, _operator_of, *args,
             max_iterations=p.linear_max_iterations, **kw)
     if method in ("bcgsl", "bicgstabl"):
         return krylov.bicgstab_l_solve(
-            program, newton.operator, *args, ell=p.linear_ell,
+            program, _operator_of, *args, ell=p.linear_ell,
             max_iterations=p.linear_max_iterations, **kw)
     max_restarts = krylov.max_restarts(p.linear_max_iterations,
                                        p.linear_restart)
     if method == "gmres":
         return krylov.gmres_solve(
-            program, newton.operator, *args, restart=p.linear_restart,
+            program, _operator_of, *args, restart=p.linear_restart,
             max_restarts=max_restarts, **kw)
     if method == "lgmres":
         return krylov.lgmres_solve(
-            program, newton.operator, *args, restart=p.linear_restart,
+            program, _operator_of, *args, restart=p.linear_restart,
             augment=p.linear_augment, max_restarts=max_restarts, **kw)
     raise ValueError(f"unknown linear solver: {method!r}")
 
@@ -340,55 +353,59 @@ def newton_solve(
         raise ValueError(
             f"graph program: linear method {params.linear_method!r} with "
             f"preconditioner {params.linear_pc!r}: {why}")
-    newton = _Newton(system, params)
-    p = params
-    syncs0 = program.host_syncs
-    fnorm0, st, flags = program.run(
-        "newton.start", newton.start, y0, region0, temperature0, rock,
-        coeffs, t0, t1, lhs_scale, initial)
-    f = program.read(flags)
-    converged, failed = f[0] > 0.5, f[1] > 0.5
-    if p.monitor:
-        print(f"newton it 0: maxres {f[2]:.6e} worst cell {int(f[3])} "
-              f"eq {int(f[4])}")
-
-    it = 0
-    linear_its = 0
-    matvecs = 0
-    masked = 0
-    while not converged and not failed and it < p.max_iterations:
-        lin = _linear_solve(program, newton, st, rock, coeffs, t0, t1)
-        matvecs += lin.matvecs
-        masked += lin.masked_iterations
-        st, flags = program.loop("newton.update", newton.update, st, lin.x,
-                                 rock, coeffs, t0, t1, lhs_scale, fnorm0)
+    with span("newton.solve"):
+        newton = _Newton(system, params)
+        p = params
+        syncs0 = program.host_syncs
+        fnorm0, st, flags = program.run(
+            "newton.start", newton.start, y0, region0, temperature0, rock,
+            coeffs, t0, t1, lhs_scale, initial)
         f = program.read(flags)
-        it += 1
-        linear_its += lin.iterations
+        converged, failed = f[0] > 0.5, f[1] > 0.5
         if p.monitor:
-            print(f"newton it {it}: maxres {f[2]:.6e} maxupd {f[3]:.3e} "
-                  f"worst cell {int(f[4])} eq {int(f[5])} linear its "
-                  f"{lin.iterations}")
-        failed = failed or f[0] > 0.5 or not lin.converged
-        converged = it >= p.min_iterations and f[1] > 0.5 and not failed
+            print(f"newton it 0: maxres {f[2]:.6e} worst cell {int(f[3])} "
+                  f"eq {int(f[4])}")
 
-    out = program.hand_out((st.y, st.region, st.maxres, st.worst_cell,
-                            st.worst_equation, st.fluid, st.lhs, st.fluxes))
-    y, region, maxres, wc, we, fluid, L, fx = out
-    return NewtonResult(
-        y=y,
-        region=region,
-        iterations=it,
-        converged=converged,
-        failed=failed,
-        max_residual=maxres,
-        linear_iterations=linear_its,
-        worst_cell=wc,
-        worst_equation=we,
-        host_syncs=program.host_syncs - syncs0,
-        matvecs=matvecs,
-        fluid=fluid,
-        lhs=L,
-        fluxes=fx,
-        masked_iterations=masked,
-    )
+        it = 0
+        linear_its = 0
+        matvecs = 0
+        masked = 0
+        while not converged and not failed and it < p.max_iterations:
+            lin = _linear_solve(program, newton, st, rock, coeffs, t0, t1)
+            matvecs += lin.matvecs
+            masked += lin.masked_iterations
+            st, flags = program.loop("newton.update", newton.update, st,
+                                     lin.x, rock, coeffs, t0, t1, lhs_scale,
+                                     fnorm0)
+            f = program.read(flags)
+            it += 1
+            linear_its += lin.iterations
+            if p.monitor:
+                print(f"newton it {it}: maxres {f[2]:.6e} maxupd "
+                      f"{f[3]:.3e} worst cell {int(f[4])} eq {int(f[5])} "
+                      f"linear its {lin.iterations}")
+            failed = failed or f[0] > 0.5 or not lin.converged
+            converged = (it >= p.min_iterations and f[1] > 0.5
+                         and not failed)
+
+        out = program.hand_out((st.y, st.region, st.maxres,
+                                st.worst_cell, st.worst_equation, st.fluid,
+                                st.lhs, st.fluxes))
+        y, region, maxres, wc, we, fluid, L, fx = out
+        return NewtonResult(
+            y=y,
+            region=region,
+            iterations=it,
+            converged=converged,
+            failed=failed,
+            max_residual=maxres,
+            linear_iterations=linear_its,
+            worst_cell=wc,
+            worst_equation=we,
+            host_syncs=program.host_syncs - syncs0,
+            matvecs=matvecs,
+            fluid=fluid,
+            lhs=L,
+            fluxes=fx,
+            masked_iterations=masked,
+        )

@@ -5,9 +5,10 @@ solver/krylov.py).
 
 A try is cut into pieces, each a pure function of tensors that reads
 nothing on the host: the Newton start (coefficients, residual, flags),
-the Jacobian with the operator, the preconditioner and the first Krylov
-chunk, the further Krylov chunks and rounds, and the Newton update. The
-host runs the loops between them and reads their flags once per piece.
+the Jacobian with the operator and the preconditioner, the Krylov start
+with its first chunk, the further Krylov chunks and rounds, and the
+Newton update. The host runs the loops between them and reads their
+flags once per piece.
 A Program runs each piece
 
 - eagerly (the CPU, and every configuration a graph does not cover),
@@ -35,6 +36,11 @@ Graph mode rules, each checked where it can be:
   the lazy initialisations a capture may not make) is taken out too.
 - A failed capture or replay raises, naming the piece. Nothing falls back
   to eager execution.
+
+Under a profiler a Program records the spans program.launch:<piece>
+(each replay or eager call of a piece), program.read:<piece> (the host
+read of the flags of the piece launched last), program.stage,
+program.hand_out and program.capture:<piece> (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from waiwera_tpu_torch.ops.dia import LaunchCount
+from waiwera_tpu_torch.utils.spans import profiling, span
 
 
 def _is_tensor(a) -> bool:
@@ -77,6 +84,14 @@ def distinct(tree):
         return a
 
     return pytree.tree_map(own, tree)
+
+
+class _Spans(NamedTuple):
+    """The span names of one piece."""
+
+    launch: str
+    read: str
+    capture: str
 
 
 class _Piece(NamedTuple):
@@ -140,16 +155,26 @@ class Program:
         self.capture_seconds = 0.0
         self.replays = 0
         self.host_syncs = 0
-        # a list to record (piece, start, end) CUDA events of each piece
-        # run on a CUDA device (chip_smoke.py's split of a try), or None
-        self.timing = None
+        self._spans: dict = {}
+        self._last = ""  # the piece launched last, whose flags read reads
+
+    def _span_names(self, name: str) -> _Spans:
+        names = self._spans.get(name)
+        if names is None:
+            names = self._spans[name] = _Spans(
+                f"program.launch:{name}", f"program.read:{name}",
+                f"program.capture:{name}")
+        return names
 
     # -- the host side --------------------------------------------------
 
     def read(self, flags: torch.Tensor) -> list:
         """A piece's flags as Python numbers: one host sync."""
         self.host_syncs += 1
-        return flags.tolist()
+        if not profiling():
+            return flags.tolist()
+        with span(self._span_names(self._last).read):
+            return flags.tolist()
 
     def stage(self, name: str, tree):
         """A try's inputs: eagerly the inputs themselves; in graph mode
@@ -157,6 +182,10 @@ class Program:
         same buffers at every call of `name`)."""
         if self.graphs is None:
             return tree
+        with span("program.stage"):
+            return self._stage(name, tree)
+
+    def _stage(self, name: str, tree):
         leaves, spec = pytree.tree_flatten(tree)
         kept = self._stages.get(name)
         if kept is None:
@@ -187,29 +216,26 @@ class Program:
         mode (the next try's replays overwrite the pool)."""
         if self.graphs is None:
             return tree
-        return pytree.tree_map(
-            lambda a: a.clone() if _is_tensor(a) else a, tree)
+        with span("program.hand_out"):
+            return pytree.tree_map(
+                lambda a: a.clone() if _is_tensor(a) else a, tree)
 
     # -- pieces ---------------------------------------------------------
 
-    def _timed(self, name, fn, args=None):
-        if self.timing is None or (args is not None and not any(
-                _is_tensor(a) and a.is_cuda
-                for a in pytree.tree_leaves(args))):
-            return fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        self.timing.append((name, start, end))
-        return out
+    def _launch(self, name, fn, *args):
+        """fn(*args), the launch of the piece `name` (a replay, or the
+        eager piece itself)."""
+        self._last = name
+        if not profiling():
+            return fn(*args)
+        with span(self._span_names(name).launch):
+            return fn(*args)
 
     def run(self, name: str, fn: Callable, *args):
         """fn(*args) as the piece `name` (fn is used at the piece's
         capture only)."""
         if self.graphs is None:
-            return self._timed(name, lambda: fn(*args), args)
+            return self._launch(name, fn, *args)
         return self._call(name, lambda: fn(*args), lambda: fn(*args), args,
                           None)
 
@@ -217,7 +243,7 @@ class Program:
         """(state, out) = fn(state, *args) as the piece `name`; in graph
         mode the new state is copied into `state`, which is returned."""
         if self.graphs is None:
-            return self._timed(name, lambda: fn(state, *args), state)
+            return self._launch(name, fn, state, *args)
 
         def body():
             new, out = fn(state, *args)
@@ -243,7 +269,7 @@ class Program:
         else:
             self._check(name, piece, leaves, spec)
         try:
-            self._timed(name, lambda: self.graphs.replay(piece.graph))
+            self._launch(name, self.graphs.replay, piece.graph)
         except Exception as e:
             raise RuntimeError(f"graph program: replay of piece {name!r} "
                                f"failed: {e}") from e
@@ -261,9 +287,10 @@ class Program:
         t0 = time.perf_counter()
         counts = [c.count for c in LaunchCount.all]
         try:
-            self.graphs.warm(warm)
-            warmed = [c.count for c in LaunchCount.all]
-            graph, out = self.graphs.capture(body, mutated)
+            with span(self._span_names(name).capture):
+                self.graphs.warm(warm)
+                warmed = [c.count for c in LaunchCount.all]
+                graph, out = self.graphs.capture(body, mutated)
         except Exception as e:
             raise RuntimeError(f"graph program: capture of piece {name!r} "
                                f"failed: {e}") from e
