@@ -5,9 +5,10 @@
 
 Phases (any failure raises and the exit code is nonzero):
 1. the card: nvidia-smi name and power limit, torch's CUDA, nvcc;
-2. build the CUDA kernels csrc/dia_spmv.cu and csrc/stream_scale.cu from
-   the checkout (one nvcc each, started together, sm_90a; -Xptxas=-v
-   prints each kernel's registers, shared memory and spills);
+2. build the CUDA kernels csrc/dia_spmv.cu, csrc/stream_scale.cu and
+   csrc/wge_cell_jvp.cu from the checkout (one nvcc each, started
+   together, sm_90a; -Xptxas=-v prints each kernel's registers, shared
+   memory and spills);
 3. each kernel against its plain PyTorch version on the card:
    - dia_spmv_f32 at b = 1..4 with odd, negative and out-of-range
      offsets, and at the flagship shape (b = 3, offsets 0, +-1, +-128,
@@ -215,6 +216,20 @@ Phases (any failure raises and the exit code is nonzero):
    box's factorisation seconds per Jacobian and the linear-algebra
    library behind it.
    `python3 chip_smoke.py --phase 12` runs phases 1, 2 and 12 alone.
+13. the Jacobian's cell chain (csrc/wge_cell_jvp.cu, wge_cell_phase):
+   the flagship's tries from 1e5 s (retry ladder, 2 steps accepted) as
+   graphs, the kernel's launches equal to their Newton iterations; at the
+   boiling state they reach, the kernel against the plain chain (every
+   field's f32 error at most twice the plain f32 chain's against the
+   plain f64 chain, equal phase compositions), then, replayed as CUDA
+   graphs in turns (12 rounds, CUDA events): the plain cell chain, the
+   kernel, the kernel with the source tangents, jacobian_parts on each
+   route and the band pack with block-Jacobi, so the Jacobian's split
+   before and after; the two cell chains also eagerly; the kernel's
+   bound (bytes over 3.35 TB/s, transcendental calls over the special
+   function units). Phase 7's flagship run also holds the kernel's
+   launches to its Newton iterations. `python3 chip_smoke.py --phase 13`
+   runs phases 1, 2 and 13 alone (~3 min).
    Every one-rank configuration runs as graphs: phases 4 (the bench's
    operating points and its stages, and the preconditioner sweep's
    line and cpr), 6, 7, 8, 9 (its tracer step too), 10 and 12 (each
@@ -1395,6 +1410,12 @@ def flagship_io_run(workdir, counters, log=log):
         raise RuntimeError(
             f"model run: kernel launches {run_counts['dia_spmv']} != "
             f"Krylov matvecs {ts.stats['matvecs']}")
+    # the wge flagship's Jacobians all come from the cell-chain kernel
+    if run_counts.get("wge_cell_jvp", 0) != ts.stats["newton_iterations"]:
+        raise RuntimeError(
+            f"model run: wge_cell_jvp launches "
+            f"{run_counts.get('wge_cell_jvp')} != Jacobians "
+            f"{ts.stats['newton_iterations']}")
     h5 = os.path.join(workdir, "model_beuler_128x64x64.h5")
     nrec, mb, rec_mb = check_output_file(h5, ts, times)
     out_s = ts.stats["output_seconds"]
@@ -3542,16 +3563,184 @@ def multi_rank_phase(workdir, device="cuda", flagship=FLAGSHIP,
     return total, runs
 
 
+# phase 13: the Jacobian's cell chain as the kernel csrc/wge_cell_jvp.cu
+# against its plain chain. Transcendental calls a row makes in the
+# kernel: region 1 (liquid) IF97 region 1's two sums (68 exp, 2 log) and
+# the viscosity (1 exp); region 2 (vapour) IF97 region 2's sums (95 exp,
+# 3 log), the viscosity and air's mixture viscosity (1 exp, 1 log);
+# region 4 both and the saturation line
+WGE_TRANSCENDENTALS = {1: 71, 2: 100, 4: 171}
+# H100 SXM special-function units: 16 per SM and clock, 132 SMs, 1.98 GHz
+MUFU_PER_S = 16 * 132 * 1.98e9
+
+
+def _graph_of(fn):
+    """fn captured as a CUDA graph after a warm-up run on a side stream:
+    (graph, its output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _field_errors(got, plain, truth):
+    """{field: (kernel's, plain's)} largest error over the field's largest
+    magnitude, against the f64 truth."""
+    def err(a, t):
+        return float((a.double() - t).abs().max()
+                     / t.abs().max().clamp_min(1e-300))
+    return {k: (err(got[k], truth[k]), err(plain[k], truth[k]))
+            for k in truth}
+
+
+def wge_cell_phase(size=FLAGSHIP, log=log, rounds=12):
+    """Phase 13: the flagship's tries from 1e5 s (retry ladder, 2 steps
+    accepted) as graphs, with the kernel's launches equal to their Newton
+    iterations (one Jacobian each); at the boiling state they reach, the
+    kernel against the plain chain (every field's f32 error at most twice
+    the plain f32 chain's against the plain f64 chain, equal phases), and
+    each part of the f32 Jacobian replayed as a CUDA graph in turns (CUDA
+    events): the plain cell chain, the kernel, the kernel with the source
+    tangents, jacobian_parts on each route and the band pack with
+    block-Jacobi; the cell chains also eagerly. Returns the record."""
+    from waiwera_tpu_torch import bench
+    from waiwera_tpu_torch.ops import wge_cell
+    from waiwera_tpu_torch.solver.system import MethodCoeffs
+
+    sim = build_sim(*size, "cuda")
+    system = sim.system
+    if not system.cell_kernel:
+        raise RuntimeError("phase 13: the flagship took the plain chain")
+    wge_cell.wge_cell_jvp_launches.count = 0
+    tries = run_steps(sim, make_step(sim), accept=2)
+    newton = sum(int(r.iterations) for _, r, _ in tries)
+    launches = wge_cell.wge_cell_jvp_launches.count
+    if launches != newton or launches == 0:
+        raise RuntimeError(f"phase 13: {launches} kernel launches for "
+                           f"{newton} Jacobians")
+    last = [r for _, r, _ in tries if r.converged and not r.failed][-1]
+    y, region = last.y, last.region
+    regions = {r: int((region == r).sum()) for r in (1, 2, 3, 4)}
+    if regions[4] == 0:
+        raise RuntimeError(f"phase 13: no boiling cell ({regions})")
+    rock, f32 = sim.rock, torch.float32
+    rock32 = rock.to(f32)
+    coeffs = MethodCoeffs(c_lhs=1.0, dt_eff=1.0e4, const=torch.zeros_like(y))
+    t0, t1 = 0.0, 1.0e4
+
+    def plain_cells():
+        return system.cell_jvp(y.to(f32), region, rock.to(f32), t0, t1)
+
+    def kernel_cells():
+        return wge_cell.cell_jvp(system._cell_params, y, region, rock,
+                                 system.mesh.is_ghost, f32)
+
+    def kernel_and_sources():
+        c = kernel_cells()
+        return c, system.source_jvp(c.fluid(region), c.d_fluid, t0, t1)
+
+    def parts(kernel):
+        def fn():
+            system.cell_kernel = kernel
+            try:
+                return system.jacobian_parts(y, region, rock, coeffs, t0, t1,
+                                             tangent_dtype=f32)
+            finally:
+                system.cell_kernel = True
+        return fn
+
+    # the kernel against the plain chain at this state
+    names = [k for k, _ in wge_cell.LAYOUT[:-1]]
+
+    def fields(fluid, cond, d_fluid, d_cond, dL):
+        out = dict(zip(names, fluid.float_fields()))
+        out.update({f"d_{k}": v for k, v in zip(names, d_fluid)})
+        out.update(conductivity=cond, d_conductivity=d_cond, dL=dL)
+        return out
+
+    truth = fields(*system.cell_jvp(y, region, rock, t0, t1)[:5])
+    plain = system.cell_jvp(y.to(f32), region, rock32, t0, t1)
+    k = kernel_cells()
+    errs = _field_errors(fields(k.fluid(region), k.cond, k.d_fluid, k.d_cond,
+                                k.dL), fields(*plain[:5]), truth)
+    del truth
+    worst = max(errs, key=lambda f: errs[f][0] / max(errs[f][1], 1e-300))
+    bad = {f: e for f, e in errs.items() if not e[0] <= 2.0 * e[1]}
+    if bad:
+        raise RuntimeError(f"phase 13: kernel errors above twice the plain "
+                           f"chain's: {bad}")
+    if not torch.equal(k.phase_composition, plain[0].phase_composition):
+        raise RuntimeError("phase 13: phase compositions differ")
+    del plain, k
+    release()
+
+    graphs = {}
+    for name, fn in (("plain_cell_chain", plain_cells),
+                     ("kernel", kernel_cells),
+                     ("kernel_and_sources", kernel_and_sources),
+                     ("jacobian_plain", parts(False)),
+                     ("jacobian_kernel", parts(True))):
+        graphs[name] = _graph_of(fn)
+    j_parts = graphs["jacobian_kernel"][1]
+    graphs["band_pack_bjacobi"] = _graph_of(
+        lambda: system.linear_operator_from_parts(j_parts, "bjacobi",
+                                                  dtype=f32))
+    replayed = paired_ms({n: g.replay for n, (g, _) in graphs.items()},
+                         rounds=rounds, k=5)
+    eager = paired_ms({"plain_cell_chain": plain_cells,
+                       "kernel": kernel_cells}, rounds=6, k=3)
+    del graphs, j_parts
+    release()
+
+    n = y.shape[0]
+    # reads: y (f64 x 3), region (int32), five rock fields (f64), ghost;
+    # writes: 24 primal and 3 x 27 tangent f32 values, phases (int32)
+    nbytes = n * (24 + 4 + 40 + 1) + n * (24 * 4 + 3 * 27 * 4 + 4)
+    calls = sum(WGE_TRANSCENDENTALS.get(r, 0) * c for r, c in regions.items())
+    bound_bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    bound_mufu_ms = calls / MUFU_PER_S * 1e3
+    med = {name: t[1] for name, t in replayed.items()}
+    rec = {
+        "size": list(size), "rows": n, "regions": regions,
+        "tries": len(tries), "newton": newton, "launches": launches,
+        "replayed_ms": replayed, "eager_ms": eager,
+        "split_plain_ms": {
+            "cell_chain": med["plain_cell_chain"],
+            "face_chain_and_assembly": med["jacobian_plain"]
+            - med["plain_cell_chain"],
+            "band_pack_bjacobi": med["band_pack_bjacobi"]},
+        "split_kernel_ms": {
+            "cell_chain": med["kernel_and_sources"],
+            "face_chain_and_assembly": med["jacobian_kernel"]
+            - med["kernel_and_sources"],
+            "band_pack_bjacobi": med["band_pack_bjacobi"]},
+        "bytes": nbytes, "transcendentals": calls,
+        "bound_bytes_ms": bound_bytes_ms, "bound_mufu_ms": bound_mufu_ms,
+        "bound_ms": max(bound_bytes_ms, bound_mufu_ms),
+        "roofline_share": max(bound_bytes_ms, bound_mufu_ms) / med["kernel"],
+        "worst_field": [worst, *errs[worst]],
+        "card": bench.card(),
+    }
+    log(f"phase 13 (wge_cell_jvp) {json.dumps(rec)}")
+    return rec
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--phase") + 1] if "--phase" in argv else None
-    if only not in (None, "12"):
-        raise SystemExit(f"chip_smoke: --phase {only}: only 12 runs alone")
+    if only not in (None, "12", "13"):
+        raise SystemExit(f"chip_smoke: --phase {only}: only 12 and 13 run "
+                         "alone")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
     from waiwera_tpu_torch import bench
-    from waiwera_tpu_torch.ops import cuda_build, dia, stream
+    from waiwera_tpu_torch.ops import cuda_build, dia, stream, wge_cell
     from waiwera_tpu_torch.solver.system import MethodCoeffs
 
     t_all = time.perf_counter()
@@ -3567,13 +3756,16 @@ def main(argv=None) -> int:
 
     # 2. build the kernels from the checkout, in parallel
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["dia_spmv", "stream_scale"],
+    libs = cuda_build.build_all(["dia_spmv", "stream_scale", "wge_cell_jvp"],
                                 extra_flags=("-Xptxas=-v",))
     log(f"built {[os.path.relpath(p, ROOT) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    if only == "12":
-        graph_phase()
+    if only is not None:
+        if only == "12":
+            graph_phase()
+        else:
+            wge_cell_phase()
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -3660,7 +3852,8 @@ def main(argv=None) -> int:
     counters = {"dia_spmv": dia.dia_spmv_launches,
                 "dia_spmv_f64": dia.dia_spmv_f64_launches,
                 "stream_scale": stream.stream_scale_launches,
-                "stream_scalar": stream.stream_scalar_launches}
+                "stream_scalar": stream.stream_scalar_launches,
+                "wge_cell_jvp": wge_cell.wge_cell_jvp_launches}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         run_counts, run_wall, entry, phase7_io = flagship_io_run(
@@ -3736,6 +3929,10 @@ def main(argv=None) -> int:
     # 12. the try as replayed CUDA graphs against the same try eagerly
     release()
     res["graph_program"] = graph_phase()
+
+    # 13. the Jacobian's cell chain: the kernel against the plain chain
+    release()
+    res["wge_cell_jvp"] = wge_cell_phase()
 
     bw = res["measured_bandwidth_gb_s"] * 1e9
     entries = [

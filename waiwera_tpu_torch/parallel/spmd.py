@@ -78,6 +78,7 @@ class LocalSystem(System):
         self.network = network
         self.npv = npv = eos.num_primary_variables
         self.isothermal = eos.isothermal
+        self.choose_cell_route()
         self.comm = comm
         self.owned = owned
         self.routes = routes

@@ -13,7 +13,9 @@ sources are cell-local and fluxes are face-local in the gathered pair
 representation, npv tangents of the cell chain plus 2*npv of the flux
 chain give every block directly; each chain is one torch.func.jvp
 vmapped over its seeds, so its primal runs once per Jacobian (the JAX
-package's jax.linearize). Regions are frozen during
+package's jax.linearize). For the water, air and energy EOS on the
+card the cell chain is one hand-written forward-mode kernel instead
+(ops/wge_cell.py). Regions are frozen during
 differentiation (doc/dev/code/index.md:37-39). Face data moves by
 indexed gathers and fixed-order scatter-sums (ops/segment.py) in the
 canonical face order.
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from waiwera_tpu_torch.mesh.device import MeshArrays
-from waiwera_tpu_torch.ops import dia, ell
+from waiwera_tpu_torch.ops import dia, ell, wge_cell
 from waiwera_tpu_torch.ops.segment import SegmentSum
 from waiwera_tpu_torch.physics import assembly
 from waiwera_tpu_torch.physics.state import INT_FIELDS, FluidState, RockState
@@ -110,6 +112,7 @@ class System:
         self.network = network
         self.npv = eos.num_primary_variables
         self.isothermal = eos.isothermal
+        self.choose_cell_route()
         face_cells = mesh.face_cells.cpu().numpy()
         is_ghost = mesh.is_ghost.cpu().numpy()
         self.structure = bsr.build_structure(
@@ -144,6 +147,14 @@ class System:
                        mesh.num_cells, device)
             if self.hybrid is not None else None
         )
+
+    def choose_cell_route(self):
+        """The Jacobian's cell chain: the kernel csrc/wge_cell_jvp.cu
+        where it covers the EOS and the mesh lies on a CUDA device
+        (ops/wge_cell.py route), the plain chain (cell_jvp) otherwise."""
+        self.cell_kernel = wge_cell.route(self.eos, self.mesh.is_ghost.device)
+        self._cell_params = (wge_cell.wge_params(self.eos)
+                             if self.cell_kernel else None)
 
     @cached_property
     def _bsr_assembly(self) -> bsr.Assembly:
@@ -284,34 +295,16 @@ class System:
 
     # -- block Jacobian -------------------------------------------------
 
-    def jacobian_parts(self, y, region, rock: RockState,
-                       coeffs: MethodCoeffs, t0, t1, tangent_dtype=None):
-        """Element-major Jacobian block parts (diag2 [b*b, N],
-        J[l,r] lr2 [b*b, F], J[r,l] rl2 [b*b, F]), J[i,j][e,v] =
-        dr_i[e]/dy_j[v] in row e*npv+v.
-
-        Each chain's primal is evaluated once, as jax.linearize does in
-        the JAX package: one torch.func.jvp of the cell chain, vmapped
-        over the npv seeds (rows of the identity), and one jvp of the
-        pair flux function of both sides, vmapped over 2*npv seeds (left
-        seeds, then right). The primal does not depend on the batched
-        tangent, so vmap runs it unbatched (out_dims=None asserts it).
-
-        tangent_dtype=torch.float32 evaluates the whole chain (primal and
-        tangents) in f32, as the JAX package does by tracing it under
-        jax.enable_x64(False): y, rock, geometry and coefficients are
-        cast once, and every constant follows its input's dtype. The
-        residual itself stays f64 (it is not computed here). Nothing is
-        read on the host."""
+    def cell_jvp(self, y, region, rock: RockState, t0, t1):
+        """The cell chain at y and its npv tangents (seed v: y[:, v]), the
+        plain version of the kernel route (ops/wge_cell.py): one
+        torch.func.jvp of the cell chain vmapped over the npv seeds, in
+        the dtype of y and rock. Returns (fluid, cond [N], d_fluid
+        (per floating field [npv, N, ...]), d_cond [npv, N], dL [npv, N,
+        npv], dq [npv, N, npv])."""
         npv = self.npv
-        dtype = y.dtype if tangent_dtype is None else tangent_dtype
-        y = y.to(dtype)
-        rock = rock.to(dtype)
-        mesh = self.mesh_as(dtype)
-        c_lhs = scalar_like(coeffs.c_lhs, y)
-        dt_eff = scalar_like(coeffs.dt_eff, y)
-        n = mesh.num_cells
-        cl, cr = self.cl, self.cr
+        dtype = y.dtype
+        n = self.mesh.num_cells
 
         def cell_chain(yv):
             # cell-local chain: fluid state, conductivity, balances and
@@ -332,12 +325,68 @@ class System:
                                             has_aux=True),
                 out_dims=(None, 0, None),
             )(seeds)
-        fluid = _fluid_of(ints, floats)
+        return _fluid_of(ints, floats), cond, d_fluid, d_cond, dL, dq
+
+    def source_jvp(self, fluid: FluidState, d_fluid, t0, t1):
+        """[npv, N, npv] tangents of the source inflows at fluid, given the
+        tangents of its floating fields ([npv, N, ...] each): the chain
+        rule through source_term, whose cost is per source."""
+        def inflows(*floats):
+            return self.source_term(fluid.with_float_fields(floats), t0, t1)
+
+        primals = fluid.float_fields()
+        return torch.func.vmap(
+            lambda *t: torch.func.jvp(inflows, primals, t),
+            out_dims=(None, 0),
+        )(*d_fluid)[1]
+
+    def jacobian_parts(self, y, region, rock: RockState,
+                       coeffs: MethodCoeffs, t0, t1, tangent_dtype=None):
+        """Element-major Jacobian block parts (diag2 [b*b, N],
+        J[l,r] lr2 [b*b, F], J[r,l] rl2 [b*b, F]), J[i,j][e,v] =
+        dr_i[e]/dy_j[v] in row e*npv+v.
+
+        Each chain's primal is evaluated once, as jax.linearize does in
+        the JAX package: one torch.func.jvp of the cell chain, vmapped
+        over the npv seeds (rows of the identity), and one jvp of the
+        pair flux function of both sides, vmapped over 2*npv seeds (left
+        seeds, then right). The primal does not depend on the batched
+        tangent, so vmap runs it unbatched (out_dims=None asserts it).
+
+        tangent_dtype=torch.float32 evaluates the whole chain (primal and
+        tangents) in f32, as the JAX package does by tracing it under
+        jax.enable_x64(False): y, rock, geometry and coefficients are
+        cast once, and every constant follows its input's dtype. The
+        residual itself stays f64 (it is not computed here). Nothing is
+        read on the host.
+
+        On the kernel route (choose_cell_route) the cell chain and its
+        tangents come from csrc/wge_cell_jvp.cu instead, in `dtype` from
+        the f64 state, and the source inflows' tangents from source_jvp;
+        the face chain and the assembly are the same."""
+        npv = self.npv
+        dtype = y.dtype if tangent_dtype is None else tangent_dtype
+        rock_t = rock.to(dtype)
+        if self.cell_kernel:
+            # the kernel reads the f64 state and casts it in registers
+            cells = wge_cell.cell_jvp(self._cell_params, y, region, rock,
+                                      self.mesh.is_ghost, dtype)
+            fluid = cells.fluid(region)
+            cond, d_fluid, d_cond, dL = (cells.cond, cells.d_fluid,
+                                         cells.d_cond, cells.dL)
+            dq = self.source_jvp(fluid, d_fluid, t0, t1)
+        else:
+            fluid, cond, d_fluid, d_cond, dL, dq = self.cell_jvp(
+                y.to(dtype), region, rock_t, t0, t1)
+        mesh = self.mesh_as(dtype)
+        c_lhs = scalar_like(coeffs.c_lhs, rock_t.porosity)
+        dt_eff = scalar_like(coeffs.dt_eff, rock_t.porosity)
+        cl, cr = self.cl, self.cr
 
         # face fluxes and their side Jacobians: one jvp of the pair flux
         # function of both sides' states, vmapped over the left cell's
         # seeds and then the right cell's
-        perm_l, perm_r = assembly.face_permeability_sides(rock, mesh)
+        perm_l, perm_r = assembly.face_permeability_sides(rock_t, mesh)
         fl, fr = fluid.index(cl), fluid.index(cr)
         iso = self.isothermal
 
